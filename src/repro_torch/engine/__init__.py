@@ -1,0 +1,18 @@
+"""Batched parameterized-circuit execution engine (single device).
+
+Templates split circuits into static structure + parameter vector, plans
+compile each structure once per backend, and the batch executor runs plans
+over parameter sweeps with the batch axis carried through every kernel.
+"""
+from repro_torch.engine.template import (  # noqa: F401
+    CircuitTemplate, TemplateOp, fixed_op, template_of,
+    qaoa_template, hea_template, PARAM_KINDS,
+)
+from repro_torch.engine.plan import (  # noqa: F401
+    BACKENDS, CompiledPlan, PlanCache, PlanItem, CacheStats, compile_plan,
+    resolve_f, resolve_diag_f, PARAM_OP_CLASS, GLOBAL_PLAN_CACHE,
+)
+from repro_torch.engine.telemetry import (  # noqa: F401
+    Histogram, VectorizationProfile, vectorization_profile,
+)
+from repro_torch.engine.batch import BatchExecutor  # noqa: F401
