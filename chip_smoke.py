@@ -361,6 +361,11 @@ class Smoke:
         run_ms = (time.perf_counter() - t0) * 1e3
         after = launch_counts()
         launches = {k: after[k] - before[k] for k in after}
+        del states
+        t0 = time.perf_counter()
+        states = ex.run_batch(tmpl, pm)
+        torch.cuda.synchronize()
+        warm_ms = (time.perf_counter() - t0) * 1e3
         refs = BatchExecutor(H100, backend="dense",
                              device=self.dev).run_batch(tmpl, pm)
         worst = max(float(torch.linalg.vector_norm(s.data - r.data))
@@ -369,7 +374,8 @@ class Smoke:
         kinds = plan.class_counts()
         bound = items_bound_ms(plan, batch)
         say(f"BatchExecutor qaoa{nb}p2 B={batch}: compile {compile_s:.2f} s, "
-            f"run_batch {run_ms:.1f} ms (items' bound {bound:.1f} ms), "
+            f"run_batch {run_ms:.1f} ms first / {warm_ms:.1f} ms warm "
+            f"(items' bound {bound:.1f} ms, {100 * bound / warm_ms:.0f}%), "
             f"items {kinds}, launches "
             f"K1={launches['apply_fused_gate']} "
             f"K2={launches['apply_phase_gate']}, max row |psi-psi_dense|_2="
@@ -378,102 +384,240 @@ class Smoke:
             raise AssertionError(f"qaoa{nb} batch off the dense backend "
                                  f"({worst:.3g}, {norm_err:.3g})")
         self.report["batch"] = {"n": nb, "B": batch, "compile_s": compile_s,
-                                "run_ms": run_ms, "items_bound_ms": bound,
+                                "run_ms": run_ms, "run_ms_warm": warm_ms,
+                                "items_bound_ms": bound,
                                 "items": kinds,
                                 "launches": launches, "l2_vs_dense": worst}
         del states, refs
         torch.cuda.empty_cache()
 
     # -- phase 3: kernel timings at the main path's shapes ------------------------------
-    def timings(self) -> dict:
+    def shape(self, kernel: str, label: str, fn, plain, nbytes: float,
+              ops: float, lib=None, lib_name: str | None = None) -> dict:
+        """Check ``fn`` against ``plain`` on the card, then time the kernel,
+        its plain version and, where one PyTorch call computes the same
+        function, that call (``lib``; else ``lib_name`` says why not).
+        The bound is the larger of ``nbytes`` at the memory rate and ``ops``
+        fp32 operations at the fp32 rate."""
+        torch = self.torch
+        got = fn()
+        err = self.check(kernel, got, plain(), label)
+        del got
+        ms = self.time_ms(fn)
+        plain_ms = self.time_ms(plain)
+        lib_ms = self.time_ms(lib) if lib is not None else None
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = ops / FP32_FLOPS_PER_S
+        row = {"kernel": kernel, "shape": label, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library": lib_name, "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "max_abs_err": err}
+        row["share"] = row["bound_ms"] / ms
+        lib_txt = (f"{lib_ms:.3f} ms ({lib_name})" if lib_ms is not None
+                   else f"null ({lib_name})")
+        say(f"{'K1' if kernel == 'apply_fused_gate' else 'K2'} {label}: "
+            f"{ms:.3f} ms (bound {row['bound_ms']:.3f} ms by "
+            f"{row['bound_by']}, {100 * row['share']:.0f}%), plain "
+            f"{plain_ms:.3f} ms, library {lib_txt}, max_abs_err {err:.2e}")
+        self.report["timings"]["shapes"].append(row)
+        torch.cuda.empty_cache()
+        return row
+
+    def fused_shapes(self, data, rng) -> dict:
+        """K1 at n = 30 (and the qaoa sweep's n = 26, B = 8)."""
         import numpy as np
         from repro_torch.core.gates import random_unitary
         from repro_torch.kernels.apply_gate import ops as K, ref as R
+        torch = self.torch
+        n, N = FULL_N, 1 << FULL_N
+
+        def planes(k, rows=None):
+            u = np.stack([random_unitary(1 << k, rng)
+                          for _ in range(rows or 1)])
+            ur = torch.as_tensor(u.real.astype(np.float32), device=self.dev)
+            ui = torch.as_tensor(u.imag.astype(np.float32), device=self.dev)
+            return (ur, ui) if rows else (ur[0], ui[0])
+
+        def einsum_lib(x, qs, ur, ui, nq):
+            """One ``torch.einsum`` of U (as 2k binary axes) with the
+            complex state viewed as nq binary axes."""
+            k = len(qs)
+            letters = [chr(ord("a") + i) for i in range(26)] + \
+                [chr(ord("A") + i) for i in range(26)]
+            st = letters[:nq]                   # axis i <-> qubit nq-1-i
+            rows_ = letters[nq:nq + k]          # row bit m <-> qs[m]
+            cols = list(st)
+            outs = list(st)
+            for m, q in enumerate(qs):
+                outs[nq - 1 - q] = rows_[m]
+            spec = ("".join(reversed(rows_)) +
+                    "".join(cols[nq - 1 - q] for q in reversed(qs)) + "," +
+                    "".join(cols) + "->" + "".join(outs))
+            psi = torch.complex(x[0], x[1]).reshape((2,) * nq)
+            uc = torch.complex(ur, ui).reshape((2,) * (2 * k))
+            return lambda: torch.einsum(spec, uc, psi)
+
+        rows = {}
+        for label, qs, ctrl, lib in [
+                (f"k={self.f} top bits", tuple(range(n - self.f, n)), (),
+                 "matmul_top"),
+                ("k=4 qubits 0-3", (0, 1, 2, 3), (), "matmul_low"),
+                ("k=4 qv30 (0,6,21,23)", (0, 6, 21, 23), (), "einsum"),
+                ("k=4 qv30 (1,2,9,26)", (1, 2, 9, 26), (), "einsum"),
+                (f"k=1 grover, {n - 1} controls", (n - 1,),
+                 tuple(range(n - 1)), None),
+                ("k=7 top bits", tuple(range(n - 7, n)), (), "matmul_top")]:
+            k = len(qs)
+            ur, ui = planes(k)
+            libfn, lib_name = None, None
+            if lib == "matmul_top":   # U @ psi viewed [2^k, 2^(n-k)]
+                psi = torch.complex(data[0], data[1]).reshape(1 << k, -1)
+                uc = torch.complex(ur, ui)
+                libfn, lib_name = (lambda: torch.matmul(uc, psi)), \
+                    "torch.matmul, complex view"
+            elif lib == "matmul_low":  # psi viewed [2^(n-k), 2^k] @ U^T
+                psi = torch.complex(data[0], data[1]).reshape(-1, 1 << k)
+                ut = torch.complex(ur, ui).T.contiguous()
+                libfn, lib_name = (lambda: torch.matmul(psi, ut)), \
+                    "torch.matmul by U^T, complex view"
+            elif lib == "einsum":
+                libfn = einsum_lib(data, qs, ur, ui, n)
+                lib_name = "torch.einsum on a binary-axis view"
+            else:
+                lib_name = "no single call applies a controlled gate"
+            rows[label] = self.shape(
+                "apply_fused_gate", f"n={n} {label}",
+                lambda: K.apply_fused_gate(data, n, 5, qs, ur, ui, ctrl),
+                lambda: R.apply_fused_gate_ref(data, n, 5, qs, ur, ui, ctrl),
+                16 * N + 8 * (1 << (2 * k)),
+                8 * (1 << k) * N / (1 << len(ctrl)), libfn, lib_name)
+            libfn = psi = None
+
+        nb, b = BATCH_N, 8
+        batch = self.random_planar(b, nb, seed=11)
+        ur, ui = planes(4, rows=b)
+        psi = torch.complex(batch[:, 0], batch[:, 1]).reshape(b, -1, 16)
+        ut = torch.complex(ur, ui).transpose(1, 2).contiguous()
+        qs = (0, 1, 2, 3)
+        rows["k=4 qubits 0-3, B=8 per-row U"] = self.shape(
+            "apply_fused_gate", f"n={nb} B={b} k=4 qubits 0-3 per-row U",
+            lambda: K.apply_fused_gate(batch, nb, 5, qs, ur, ui),
+            lambda: R.apply_fused_gate_ref(batch, nb, 5, qs, ur, ui),
+            b * (16 * (1 << nb) + 8 * 256), b * 8 * 16 * (1 << nb),
+            lambda: torch.matmul(psi, ut), "batched torch.matmul by U^T")
+        del batch, psi
+        torch.cuda.empty_cache()
+        return rows
+
+    def phase_shapes(self, data, rng) -> dict:
+        """K2 at n = 30 (and the qaoa sweep's n = 26, B = 8)."""
+        import numpy as np
+        from repro_torch.kernels.apply_gate import ops as K, ref as R
+        torch = self.torch
+        n, N = FULL_N, 1 << FULL_N
+
+        def phases(w, rows=None):
+            ang = torch.as_tensor(rng.uniform(0, 2 * np.pi, (rows or 1,
+                                                             1 << w)),
+                                  dtype=torch.float32, device=self.dev)
+            p_re, p_im = torch.cos(ang), torch.sin(ang)
+            return (p_re, p_im) if rows else (p_re[0], p_im[0])
+
+        def perm_of(w):
+            return torch.as_tensor(rng.permutation(1 << w).astype(np.int32),
+                                   device=self.dev)
+
+        rows = {}
+        w = self.phase_w
+        top = tuple(range(n - w, n))
+        p_re, p_im = phases(w)
+        psi = torch.complex(data[0], data[1]).reshape(1 << w, -1)
+        ph = torch.complex(p_re, p_im)[:, None]
+        rows["pure phase top bits"] = self.shape(
+            "apply_phase_gate", f"n={n} pure phase w={w} top bits",
+            lambda: K.apply_phase_gate(data, n, 5, top, p_re, p_im),
+            lambda: R.apply_phase_gate_ref(data, n, 5, top, p_re, p_im),
+            16 * N + 8 * (1 << w), 6 * N, lambda: torch.mul(psi, ph),
+            "torch.mul, broadcast phase")
+        # qft30's wide diagonals: bits 0..23 plus bit 29
+        qft = tuple(range(w - 1)) + (n - 1,)
+        psi = torch.complex(data[0], data[1]).reshape(2, -1, 1 << (w - 1))
+        ph = torch.complex(p_re, p_im).reshape(2, 1, 1 << (w - 1))
+        rows["qft30 low bits"] = self.shape(
+            "apply_phase_gate",
+            f"n={n} pure phase w={w} bits 0-{w - 2} + {n - 1}",
+            lambda: K.apply_phase_gate(data, n, 5, qft, p_re, p_im),
+            lambda: R.apply_phase_gate_ref(data, n, 5, qft, p_re, p_im),
+            16 * N + 8 * (1 << w), 6 * N, lambda: torch.mul(psi, ph),
+            "torch.mul, phase broadcast over a view")
+        psi = ph = None
+        torch.cuda.empty_cache()
+        # qft30's perm + phase items: bits 0..k-2 plus one high bit
+        qs = tuple(range(12)) + (max(12, n - 12),)
+        p_re, p_im = phases(13)
+        perm = perm_of(13)
+        rows["perm+phase w=13"] = self.shape(
+            "apply_phase_gate", f"n={n} perm+phase w=13 bits 0-11 + {qs[-1]}",
+            lambda: K.apply_phase_gate(data, n, 5, qs, p_re, p_im, perm=perm),
+            lambda: R.apply_phase_gate_ref(data, n, 5, qs, p_re, p_im,
+                                           perm=perm),
+            16 * N + 12 * (1 << 13), 6 * N, None,
+            "the cluster is two axes of the state; no single gather")
+        perm = perm_of(4)
+        for qs, lib in (((0, 1, 2, 3), True),
+                        (tuple(sorted({0, 7, n - 11, n - 1})), False)):
+            libfn = None
+            if lib:
+                psi = torch.complex(data[0], data[1]).reshape(-1, 16)
+                libfn = (lambda: torch.index_select(psi, 1, perm))
+            rows[f"perm w=4 {qs}"] = self.shape(
+                "apply_phase_gate", f"n={n} permutation w=4 qubits {qs}",
+                lambda: K.apply_phase_gate(data, n, 5, qs, None, None,
+                                           perm=perm),
+                lambda: R.apply_phase_gate_ref(data, n, 5, qs, None, None,
+                                               perm=perm),
+                16 * N + 4 * 16, 0, libfn,
+                "torch.index_select on the cluster axis" if lib else
+                "the cluster is four axes of the state; no single gather")
+            psi = libfn = None
+        # qaoa26's per-row wide diagonals: bits 0..20, B = 8
+        nb, b = BATCH_N, 8
+        batch = self.random_planar(b, nb, seed=12)
+        qs = tuple(range(21))
+        p_re, p_im = phases(21, rows=b)
+        psi = torch.complex(batch[:, 0], batch[:, 1]).reshape(b, -1, 1 << 21)
+        ph = torch.complex(p_re, p_im).reshape(b, 1, 1 << 21)
+        rows["qaoa26 per-row"] = self.shape(
+            "apply_phase_gate", f"n={nb} B={b} pure phase w=21 bits 0-20 "
+            f"per-row phases",
+            lambda: K.apply_phase_gate(batch, nb, 5, qs, p_re, p_im),
+            lambda: R.apply_phase_gate_ref(batch, nb, 5, qs, p_re, p_im),
+            b * (16 * (1 << nb) + 8 * (1 << 21)), b * 6 * (1 << nb),
+            lambda: torch.mul(psi, ph), "torch.mul, phase broadcast over a "
+            "view")
+        del batch, psi, ph
+        torch.cuda.empty_cache()
+        return rows
+
+    def timings(self) -> dict:
         from repro_torch.kernels.expectation import ops as E
+        import numpy as np
         torch = self.torch
         n = FULL_N
         N = 1 << n
         rows = {}
+        self.report["timings"]["shapes"] = []
         data = self.random_planar(1, n, seed=7)[0]
         rng = np.random.default_rng(3)
 
-        def fused(k, qs, library: bool):
-            u = random_unitary(1 << k, rng)
-            ur = torch.as_tensor(u.real.astype(np.float32), device=self.dev)
-            ui = torch.as_tensor(u.imag.astype(np.float32), device=self.dev)
-            out = K.apply_fused_gate(data, n, 5, qs, ur, ui)
-            self.check("apply_fused_gate", out,
-                       R.apply_fused_gate_ref(data, n, 5, qs, ur, ui),
-                       f"n={n} k={k} qubits={qs}")
-            del out
-            ms = self.time_ms(lambda: K.apply_fused_gate(data, n, 5, qs, ur,
-                                                         ui))
-            plain = self.time_ms(lambda: R.apply_fused_gate_ref(
-                data, n, 5, qs, ur, ui))
-            lib = None
-            if library:      # gate bits on top: U @ psi viewed [2^k, 2^(n-k)]
-                psi = torch.complex(data[0], data[1]).reshape(1 << k, -1)
-                uc = torch.complex(ur, ui)
-                lib = self.time_ms(lambda: torch.matmul(uc, psi))
-                del psi
-            torch.cuda.empty_cache()
-            t_bytes = (16 * N + 8 * (1 << (2 * k))) / HBM_BYTES_PER_S
-            t_ops = 8 * (1 << k) * N / FP32_FLOPS_PER_S
-            return {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                    "bound_ms": max(t_bytes, t_ops) * 1e3,
-                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-        f = self.f
-        rows["apply_fused_gate"] = fused(f, tuple(range(n - f, n)), True)
-        extra = {f"k={f} top bits": rows["apply_fused_gate"],
-                 f"k={f} low bits": fused(f, tuple(range(f)), False),
-                 "k=7 top bits": fused(7, tuple(range(n - 7, n)), True)}
-        for what, r in extra.items():
-            say(f"K1 n={n} {what}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f}"
-                f" ms by {r['bound_by']}), plain {r['plain_ms']:.3f} ms, "
-                f"library {r['library_ms']}")
-        self.report["timings"]["apply_fused_gate"] = extra
-
-        w = self.phase_w
-        qs = tuple(range(n - w, n))
-        ang = torch.as_tensor(rng.uniform(0, 2 * np.pi, 1 << w),
-                              dtype=torch.float32, device=self.dev)
-        p_re, p_im = torch.cos(ang), torch.sin(ang)
-        out = K.apply_phase_gate(data, n, 5, qs, p_re, p_im)
-        self.check("apply_phase_gate", out,
-                   R.apply_phase_gate_ref(data, n, 5, qs, p_re, p_im),
-                   f"n={n} w={w}")
-        del out
-        ms = self.time_ms(lambda: K.apply_phase_gate(data, n, 5, qs, p_re,
-                                                     p_im))
-        plain = self.time_ms(lambda: R.apply_phase_gate_ref(
-            data, n, 5, qs, p_re, p_im))
-        psi = torch.complex(data[0], data[1]).reshape(1 << w, -1)
-        ph = torch.complex(p_re, p_im)[:, None]
-        lib = self.time_ms(lambda: torch.mul(psi, ph))
-        del psi
-        torch.cuda.empty_cache()
-        t_bytes = (16 * N + 8 * (1 << w)) / HBM_BYTES_PER_S
-        t_ops = 6 * N / FP32_FLOPS_PER_S
-        rows["apply_phase_gate"] = {
-            "ms": ms, "plain_ms": plain, "library_ms": lib,
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        perm = torch.as_tensor(rng.permutation(16).astype(np.int32),
-                               device=self.dev)
-        qs4 = tuple(sorted({0, 7, n - 11, n - 1}))
-        perm_ms = self.time_ms(lambda: K.apply_phase_gate(
-            data, n, 5, qs4, None, None, perm=perm))
-        perm_plain = self.time_ms(lambda: R.apply_phase_gate_ref(
-            data, n, 5, qs4, None, None, perm=perm))
-        r = rows["apply_phase_gate"]
-        say(f"K2 n={n} pure phase w={w} top bits: {r['ms']:.3f} ms (bound "
-            f"{r['bound_ms']:.3f} ms by {r['bound_by']}), plain "
-            f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms; "
-            f"permutation w=4 qubits {qs4}: {perm_ms:.3f} ms, plain "
-            f"{perm_plain:.3f} ms")
-        self.report["timings"]["apply_phase_gate"] = dict(
-            r, perm_w4_ms=perm_ms, perm_w4_plain_ms=perm_plain)
+        fused = self.fused_shapes(data, rng)
+        # the kernels line keeps its first shapes: K1 k = f on the top bits
+        rows["apply_fused_gate"] = fused[f"k={self.f} top bits"]
+        self.report["timings"]["apply_fused_gate"] = fused
+        phase = self.phase_shapes(data, rng)
+        rows["apply_phase_gate"] = phase["pure phase top bits"]
+        self.report["timings"]["apply_phase_gate"] = phase
 
         for q in (n - 1, 0):
             got = E.expectation_z(data, n, 5, q)
@@ -503,8 +647,8 @@ class Smoke:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         r = rows["expectation_z"]
         say(f"K3 n={n} q={n - 1}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f}"
-            f" ms by {r['bound_by']}), plain {r['plain_ms']:.3f} ms; q=0: "
-            f"{ms0:.3f} ms")
+            f" ms by {r['bound_by']}), plain {r['plain_ms']:.3f} ms, library "
+            f"null (no single call computes <Z_q>); q=0: {ms0:.3f} ms")
         self.report["timings"]["expectation_z"] = dict(r, q0_ms=ms0)
         del data
         torch.cuda.empty_cache()
@@ -519,6 +663,13 @@ def parse_args(argv):
                    help="qubits of qrc, depth 8 (cut as qft)")
     p.add_argument("--out", default=None,
                    help="also write every number as JSON to this file")
+    p.add_argument("--timings-only", action="store_true",
+                   help="build the kernels and time them at the main path's "
+                        "shapes (phase 3) only; prints no result line")
+    p.add_argument("--src", default=os.path.join(ROOT, "src"),
+                   help="directory holding the repro_torch package to time "
+                        "(another checkout's, to compare two versions of "
+                        "the kernels in one run)")
     return p.parse_args(argv)
 
 
@@ -529,7 +680,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "a card", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path.insert(0, os.path.abspath(args.src))
     import repro_torch.kernels as RK
     from repro_torch.core.fusion import choose_f
     from repro_torch.core.target import H100, row_budget
@@ -558,6 +709,16 @@ def main(argv=None) -> int:
     smoke = Smoke(torch, args)
     # main-path shapes timed: K1 at the fused degree, K2 at the diagonal cap
     smoke.f, smoke.phase_w = choose_f(H100), row_budget(FULL_N, H100)
+    if args.timings_only:
+        say(f"timings only, kernels of {RK.__file__}")
+        smoke.timings()
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                        exist_ok=True)
+            with open(args.out, "w", encoding="utf-8") as fh:
+                json.dump(smoke.report, fh, indent=1)
+        say(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     smoke.fused_phase()
     smoke.phase_phase()
     smoke.expectation_phase()

@@ -79,6 +79,81 @@ def test_phase_kernel_matches_plain(dev, mode, qubits):
     assert float((out - ref).abs().max()) < 3e-6
 
 
+def _states_v(dev, b, n, seed):
+    """Like _states, with the lane axis cut to the state when n < 5."""
+    v = min(n, 5)
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, 2, 1 << (n - v), 1 << v)).astype(np.float32)
+    x /= np.sqrt((x.reshape(b, -1) ** 2).sum(1)).reshape(b, 1, 1, 1)
+    return torch.as_tensor(x, device=dev), v
+
+
+# K1's tile plan (ops.fused_plan): the cut s puts gate bits below it in
+# shared memory and those at or above it on the span table, controls below
+# it on groups and at or above it on whole tiles.
+@pytest.mark.parametrize("n,qubits,controls", [
+    (14, (0, 6, 9, 13), ()),             # lowest gate bit 0
+    (14, (1, 2, 9, 12), ()),             # lowest gate bit 1, split at s
+    (14, (2, 3, 4, 5), ()),              # lowest gate bit 2, all below s
+    (14, (5, 8, 11, 13), ()),            # lowest gate bit >= 5
+    (14, (0, 6, 12, 13), ()),            # two below s, two above
+    (14, (10, 11, 12, 13), ()),          # all at or above s
+    (4, (0, 1, 2, 3), ()),               # n = k: smaller than one tile
+    (5, (0, 2, 4), (1,)),                # n = 5, control below s
+    (1, (0,), ()),                       # one qubit: 4-byte copies
+    (14, (0,), (1, 13)),                 # controls below and above s
+    (14, (13,), tuple(range(13))),       # grover: k = 1, 13 controls
+    (14, (3, 7), (0, 12)),
+    (14, tuple(range(5)), (13,)),        # k = 5
+    (14, (0, 1, 2, 3, 4, 5), (9,)),      # k = 6
+    (14, (1, 3, 5, 7, 9, 11, 13), ()),   # k = 7, spread
+    (14, tuple(range(7, 14)), (0,)),     # k = 7, top bits
+])
+@pytest.mark.parametrize("rows", [1, 3])
+def test_fused_kernel_tile_plan_branches(dev, n, qubits, controls, rows):
+    data, v = _states_v(dev, 3, n, n + len(qubits))
+    rng = np.random.default_rng(len(qubits) + rows)
+    u = np.stack([random_unitary(1 << len(qubits), rng)
+                  for _ in range(rows)])
+    ur = torch.as_tensor(u.real.astype(np.float32), device=dev)
+    ui = torch.as_tensor(u.imag.astype(np.float32), device=dev)
+    out = K.apply_fused_gate(data, n, v, qubits, ur, ui, controls)
+    ref = R.apply_fused_gate_ref(data, n, v, qubits, ur, ui, controls)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) < 3e-6
+
+
+# K2's plan (ops.phase_plan): pure phases stream past a staged slice;
+# permutations gather from a staged tile, or from global memory when the
+# cluster has no bits below the cut or is too wide for a tile.
+@pytest.mark.parametrize("n,qubits", [
+    (14, (0, 1, 2)),                     # entirely below s
+    (14, tuple(range(12)) + (13,)),      # split across s (qft's shape)
+    (16, tuple(range(14))),              # too wide for a gather tile
+    (16, (13, 14, 15)),                  # entirely above s
+    (14, (0, 7, 10, 13)),                # scattered low and high bits
+    (14, (3, 4, 7, 8, 11, 12)),          # qrc-like runs
+    (14, tuple(range(1, 14))),           # lowest bit 1
+    (3, (0, 2)),
+])
+@pytest.mark.parametrize("mode", ["phase", "perm", "both"])
+@pytest.mark.parametrize("rows", [1, 3])
+def test_phase_kernel_plan_branches(dev, n, qubits, mode, rows):
+    w = len(qubits)
+    data, v = _states_v(dev, 3, n, n + w)
+    rng = np.random.default_rng(w + rows)
+    ang = torch.as_tensor(rng.uniform(0, 6.3, (rows, 1 << w)),
+                          dtype=torch.float32, device=dev)
+    p_re, p_im = (torch.cos(ang), torch.sin(ang)) if mode != "perm" \
+        else (None, None)
+    perm = rng.permutation(1 << w).astype(np.int32) if mode != "phase" \
+        else None
+    out = K.apply_phase_gate(data, n, v, qubits, p_re, p_im, perm=perm)
+    ref = R.apply_phase_gate_ref(data, n, v, qubits, p_re, p_im, perm=perm)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) < 3e-6
+
+
 @pytest.mark.parametrize("q", [0, 4, 5, 13])
 def test_expectation_kernel_matches_plain_and_repeats(dev, q):
     n = 14

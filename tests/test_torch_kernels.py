@@ -223,6 +223,200 @@ def test_phase_gate_needs_sorted_qubits():
                             perm=np.arange(4, dtype=np.int32))
 
 
+# -- launch plans, replayed index by index ---------------------------------------
+# The CUDA kernels cannot run here, so the plans they follow are replayed in
+# numpy with the kernels' own index arithmetic and held against the plain
+# versions (and so, through the tests above, against the JAX package).
+
+def _complex_rows(b, n, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, 2, 1, 1 << n)).astype(np.float32)
+    return x, (x[:, 0, 0] + 1j * x[:, 1, 0]).astype(np.complex128)
+
+
+def _replay_fused(plan, x, u):
+    """K1 as the kernel runs it: tile by tile, thread unit by unit."""
+    s, h, k = plan.s, plan.h, plan.k
+    out = x.copy()
+    covered = np.zeros(x.shape, np.int64)
+    for b in range(x.shape[0]):
+        ub = u[b if u.shape[0] > 1 else 0]
+        for t in range(plan.tiles_per_row):
+            gidx = np.array([plan.global_index(t, a)
+                             for a in range(1 << (s + h))])
+            covered[b, gidx] += 1
+            tile = x[b, gidx]
+            if plan.tile_base(t) & plan.cmask_hi != plan.cmask_hi:
+                continue
+            for unit in range(plan.units):
+                r0 = (unit % plan.rb) * plan.tr
+                for j in range(plan.tg):
+                    gi = (unit // plan.rb) * plan.tg + j
+                    if gi >= plan.groups:
+                        continue
+                    base = plan.group_base(gi)
+                    if base & plan.cmask_lo != plan.cmask_lo:
+                        continue
+                    col = tile[[plan.row_off(c) | base for c in range(1 << k)]]
+                    for r in range(r0, r0 + plan.tr):
+                        out[b, gidx[plan.row_off(r) | base]] = ub[r] @ col
+    assert (covered == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("n,qubits,controls", [
+    (8, (0, 1, 2, 3), ()), (9, (0, 6), (8,)), (9, (1, 2, 4, 7), ()),
+    (10, (2, 3, 8, 9), (0, 5)), (6, (5,), (0, 1, 2, 3, 4)), (4, (0, 1, 2, 3),
+                                                              ()),
+    (5, (0, 2, 4), (1,)), (1, (0,), ()), (13, (12,), (0, 11)),
+    (13, (0, 6, 11, 12), ()), (10, (0, 1, 2, 3, 4, 5, 6), (9,)),
+    (9, tuple(range(3, 9)), ()),
+])
+def test_fused_plan_replays_the_plain_gate(n, qubits, controls):
+    plan = TK.fused_plan(n, qubits, controls)
+    assert plan.s + plan.h <= TK.FUSED_TILE_LOG and len(plan.gbits) == \
+        plan.s - plan.low
+    assert sorted(plan.gbits + tuple(q for q in qubits if q < plan.s)) == \
+        list(range(plan.s))
+    x, psi = _complex_rows(2, n, n)
+    rng = np.random.default_rng(len(qubits))
+    u = np.stack([JG.random_unitary(1 << len(qubits), rng) for _ in range(2)])
+    got = _replay_fused(plan, psi, u)
+    want = TK.apply_fused_gate(_t(x), n, n, qubits,
+                               _t(u.real.astype(np.float32)),
+                               _t(u.imag.astype(np.float32)), controls)
+    want = want.numpy()[:, :, 0].astype(np.float64)
+    np.testing.assert_allclose(got.real, want[:, 0], atol=3e-6)
+    np.testing.assert_allclose(got.imag, want[:, 1], atol=3e-6)
+
+
+@pytest.mark.parametrize("qubits", [(0, 1, 2, 3), (0, 6, 21, 23),
+                                    (1, 2, 9, 26), (26, 27, 28, 29),
+                                    (2, 3, 4, 5), (5, 9, 17, 28)])
+def test_fused_plan_reads_a_column_without_bank_conflicts(qubits):
+    """At k = 4 each column's reads by one warp hit distinct banks after the
+    swizzle, which is linear over XOR and keeps 16-byte chunks whole."""
+    plan = TK.fused_plan(30, qubits)
+    assert sorted(TK.swizzle(a) for a in range(4096)) == list(range(4096))
+    assert all(TK.swizzle(a) & ~3 == TK.swizzle(a & ~3)
+               for a in range(0, 4096, 7))
+    for c in range(16):
+        addrs = set()
+        for lane in range(32):
+            base = plan.group_base((lane // plan.rb) * plan.tg)
+            a = plan.row_off(c) | base
+            assert TK.swizzle(a) == TK.swizzle(plan.row_off(c)) ^ \
+                TK.swizzle(base)
+            addrs.add(TK.swizzle(a))
+        assert len({a % 32 for a in addrs}) == len(addrs) == 8
+
+
+def _replay_phase(plan, x, phase, perm):
+    """K2 as the kernel runs it, in the plan's mode."""
+    b_rows, N = x.shape
+    w, s, wl = plan.w, plan.s, plan.w_low
+    lo_mask = TK.pdep((1 << wl) - 1, plan.low_runs)
+    cmask = TK.pdep((1 << w) - 1, plan.all_runs)
+    out = np.zeros_like(x)
+    written = np.zeros(x.shape, np.int64)
+    for b in range(b_rows):
+        ph = phase[b if phase.shape[0] > 1 else 0]
+        for it in range(plan.items_per_row):
+            if plan.mode == TK.PHASE_STREAM:
+                fh_bits = plan.nfree_hi - plan.m
+                hc, fh_hi = it >> fh_bits, it & ((1 << fh_bits) - 1)
+                slice_ = ph[hc << wl:(hc + 1) << wl]
+                for i in range(1 << plan.m):
+                    base = TK.pdep(hc, plan.hi_runs) | TK.pdep(
+                        (fh_hi << plan.m) | i, plan.free_runs)
+                    for o in range(1 << s):
+                        out[b, base + o] = slice_[TK.pext(o, plan.low_runs)] \
+                            * x[b, base + o]
+                        written[b, base + o] += 1
+            elif plan.mode == TK.PHASE_TILE:
+                tb = TK.pdep(it, plan.free_runs)
+                spans = [tb + TK.pdep(j, plan.hi_runs)
+                         for j in range(1 << plan.h)]
+                tile = np.concatenate([x[b, sp:sp + (1 << s)]
+                                       for sp in spans])
+                for a in range(1 << (s + plan.h)):
+                    j, o = a >> s, a & ((1 << s) - 1)
+                    r = (j << wl) | TK.pext(o, plan.low_runs)
+                    p = int(perm[r])
+                    src = ((p >> wl) << s) | (o & ~lo_mask) | TK.pdep(
+                        p & ((1 << wl) - 1), plan.low_runs)
+                    out[b, spans[j] + o] = ph[r] * tile[src]
+                    written[b, spans[j] + o] += 1
+            else:
+                for xi in range(4 * it, min(4 * it + 4, N)):
+                    r = TK.pext(xi, plan.all_runs)
+                    src = (xi & ~cmask) | TK.pdep(int(perm[r]),
+                                                  plan.all_runs)
+                    out[b, xi] = ph[r] * x[b, src]
+                    written[b, xi] += 1
+    assert (written == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("n,qubits,perm,mode", [
+    (9, (0, 1, 2), False, TK.PHASE_STREAM),
+    (9, (0, 1, 2, 3, 4, 5, 8), False, TK.PHASE_STREAM),
+    (9, (3, 4, 7), False, TK.PHASE_STREAM),
+    (14, tuple(range(12)) + (13,), False, TK.PHASE_STREAM),
+    (14, tuple(range(1, 13)), False, TK.PHASE_STREAM),
+    (14, tuple(range(5, 14)), False, TK.PHASE_DIRECT),
+    (14, tuple(range(14)), False, TK.PHASE_DIRECT),
+    (8, (0, 1, 2, 3), True, TK.PHASE_TILE),
+    (9, (0, 3, 7, 8), True, TK.PHASE_TILE),
+    (14, tuple(range(12)) + (13,), True, TK.PHASE_TILE),
+    (15, tuple(range(14)), True, TK.PHASE_DIRECT),
+    (9, (4, 6), True, TK.PHASE_TILE),
+    (15, (13, 14), True, TK.PHASE_DIRECT),
+    (1, (0,), False, TK.PHASE_DIRECT),
+])
+def test_phase_plan_replays_the_plain_gate(n, qubits, perm, mode):
+    plan = TK.phase_plan(n, qubits, perm)
+    assert plan.mode == mode
+    x, psi = _complex_rows(2, n, n + len(qubits))
+    rng = np.random.default_rng(n)
+    ang = rng.uniform(0, 2 * np.pi, (2, 1 << len(qubits)))
+    p = rng.permutation(1 << len(qubits)).astype(np.int32) if perm else \
+        np.arange(1 << len(qubits), dtype=np.int32)
+    got = _replay_phase(plan, psi, np.exp(1j * ang), p)
+    want = TK.apply_phase_gate(
+        _t(x), n, n, qubits, _t(np.cos(ang).astype(np.float32)),
+        _t(np.sin(ang).astype(np.float32)),
+        perm=p if perm else None).numpy()[:, :, 0].astype(np.float64)
+    np.testing.assert_allclose(got.real, want[:, 0], atol=3e-6)
+    np.testing.assert_allclose(got.imag, want[:, 1], atol=3e-6)
+
+
+@pytest.mark.parametrize("n,qubits,perm,slice_entries,items", [
+    (30, tuple(range(24)) + (29,), False, 4096, 1 << 13),   # qft30 low
+    (26, tuple(range(21)), False, 4096, 1 << 9),            # qaoa26
+    (30, tuple(range(5, 30)), False, None, 1 << 28),        # top bits
+    (30, tuple(range(12)) + (25,), True, None, 1 << 17),
+])
+def test_phase_plan_reads_each_phase_entry_once(n, qubits, perm,
+                                                slice_entries, items):
+    plan = TK.phase_plan(n, qubits, perm)
+    assert plan.items_per_row == items
+    if perm:
+        assert plan.mode == TK.PHASE_TILE and plan.s + plan.h == 13
+        return
+    if slice_entries is None:
+        # a cluster up to the top bit: chunks meet the entries in order
+        assert plan.mode == TK.PHASE_DIRECT and plan.all_runs == (
+            (qubits[0], n - qubits[0], 0),)
+        return
+    # items x slice = the phase vector: every entry staged exactly once
+    assert plan.mode == TK.PHASE_STREAM
+    assert 1 << plan.w_low == slice_entries
+    hc_items = plan.items_per_row >> (plan.nfree_hi - plan.m)
+    assert hc_items * (1 << plan.w_low) == 1 << len(qubits)
+    assert plan.nfree_hi == plan.m   # one item per slice
+
+
 # -- K3: <Z_q> ----------------------------------------------------------------------
 
 @pytest.mark.parametrize("n,q", [(6, 0), (6, 3), (6, 5), (9, 4), (9, 8)])
