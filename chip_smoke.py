@@ -12,9 +12,21 @@ the plain ``dense`` backend, and times each kernel at the main path's shapes
 beside its bound, its plain version and, where one exists, a single PyTorch
 call computing the same function.
 
-Every kernel wrapper counts its launches; the counts are zeroed just before
-the main path and read just after it, and a kernel the path did not launch
-fails the run.  The last two lines of standard output are a JSON object
+The result-mode path runs on the same states and plans: shots on qft30
+and ghz30 (``Simulator.sample``; on qft30 every draw is held to a plain
+float64 inverse CDF of the same uniforms, equal or across a boundary
+within 1e-12 of its uniform), Pauli expectations on ghz30 and qv30
+(``Simulator.expectation_pauli``), and expectation, shot and noisy-trajectory
+sweeps of qaoa26 through ``BatchExecutor.dispatch_batch(result=...)`` +
+``finalize_batch``: expectations against plain reductions of the
+statevector sweep, shots bitwise across batch compositions, and each noisy
+row against the same row on the planar path.  Each is timed beside its
+bound.
+
+Every kernel wrapper counts its launches.  Each path (statevector, result
+modes) is driven in segments, with the counts zeroed just before a segment
+and read just after it; a kernel a path did not launch fails the run.  The
+last two lines of standard output are a JSON object
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.  Any failure
 raises, so the script exits non-zero and prints no result.  Without a CUDA
 device, or without the repository beside it, it exits non-zero at once.
@@ -51,22 +63,109 @@ TOL = {"apply_fused_gate": 3e-6, "apply_phase_gate": 3e-6,
 # At n = 30 a random state's <Z_q> is of order 2**-15, so K3 is held there
 # to a tolerance below that scale, and also checked on a state biased on q.
 TOL_Z_FULL = 1e-6
+TOL_EXPECT = 1e-5     # result-mode expectations against plain reductions
 FULL_N = 30      # qubits of the main path's circuits and kernel timings
 BATCH_N = 26     # qubits of the batched QAOA sweep (B = 8, p = 2)
+TINY64 = 2.2250738585072014e-308
+# a draw may differ from the plain inverse CDF only across a boundary this
+# close to its uniform
+BOUNDARY_TOL = 1e-12
+# a noisy row is compared with the plain path unless one of its uniforms is
+# this close to a branch boundary
+BRANCH_MARGIN = 1e-6
 
 
 def say(*parts) -> None:
     print(*parts, flush=True)
 
 
+def chi2_crit_999(df: int) -> float:
+    """99.9% point of the chi-square distribution (Wilson-Hilferty; within
+    0.1% of the exact value at df = 1023)."""
+    z = 3.090232306167813
+    c = 2.0 / (9.0 * df)
+    return df * (1.0 - c + z * math.sqrt(c)) ** 3
+
+
+def plain_cdf(torch, probs):
+    """The float64 CDF as one ``torch.cumsum`` over the whole vector (a
+    scan order of its own), renormalized: the sampler's plain version."""
+    cdf = torch.cumsum(probs.to(torch.float64), 0)
+    cdf /= torch.clamp(cdf[-1], min=TINY64)
+    return cdf
+
+
+def plain_draws(torch, cdf, u):
+    """The plain inverse CDF's draws for the uniforms ``u``, clamped."""
+    idx = torch.searchsorted(cdf, u)
+    return torch.clamp(idx, max=cdf.numel() - 1).to(torch.int32)
+
+
+def equal_or_boundary(torch, got, want, cdf, u) -> tuple[int, int]:
+    """Hold the sampler's draws ``got`` to the plain inverse CDF's ``want``
+    on the same uniforms ``u``: every draw must be equal, or differ by one
+    index with its uniform within 1e-12 of the plain CDF's boundary
+    between the two (the two CDFs sum in different orders, so they may
+    place a boundary a few ulp apart).  Returns the counts of each kind."""
+    diff = (got != want).nonzero().flatten()
+    if diff.numel():
+        g, w = got[diff].long(), want[diff].long()
+        gap = (u[diff] - cdf[torch.minimum(g, w)]).abs()
+        bad = ((g - w).abs() != 1) | (gap > BOUNDARY_TOL)
+        if bool(bad.any()):
+            i = int(bad.nonzero()[0, 0])
+            raise AssertionError(
+                f"draw {int(diff[i])}: sampler {int(g[i])}, plain "
+                f"{int(w[i])}, uniform {float(u[diff[i]])!r} is "
+                f"{float(gap[i]):.3g} from the boundary; "
+                f"{int(bad.sum())} such draws")
+    return got.numel() - diff.numel(), diff.numel()
+
+
+def result_bounds_ms(plan, b: int) -> tuple[float, float]:
+    """``(bound, route)`` of a result-mode run of ``b`` rows, in ms.
+
+    Both start from the gate items' bound (:func:`items_bound_ms`).  The
+    bound then adds the least bytes the result steps must move at the
+    memory rate: per channel one read of the states for the branch norms
+    and one read and write to apply the drawn branch; for the epilogue one
+    read of the states (every observable, or every draw, from one pass)
+    and the draws written.  The route adds the bytes of the steps built:
+    per Kraus branch a K1 pass (read and write) and a read for its norm,
+    then one K1 pass for the drawn branch; per single-Z observable a K3
+    read, per other string a K1 pass per factor and the inner product's
+    two reads; per shot row the sampler's 48 bytes per amplitude."""
+    spec = plan.result
+    N = 1 << plan.n
+    state = 8 * N * b
+    least = route = 0
+    for it in plan.items:
+        if it.kind == "channel":
+            least += 3 * state
+            route += len(it.kraus) * 3 * state + 2 * state
+    if spec.mode == "shots":
+        least += state + 4 * spec.shots * b
+        route += 6 * state + 4 * spec.shots * b
+    else:
+        least += state
+        for obs in spec.observables:
+            route += state if len(obs) == 1 and obs[0][1] == "Z" \
+                else len(obs) * 2 * state + 2 * state
+    gates = items_bound_ms(plan, b)
+    return (gates + least / HBM_BYTES_PER_S * 1e3,
+            gates + route / HBM_BYTES_PER_S * 1e3)
+
+
 def items_bound_ms(plan, b: int) -> float:
-    """Least time the card could take for a plan's items on ``b`` rows: per
-    item, the larger of its bytes (state read and written once, plus its
-    unitary / phase planes / perm read once) over the memory rate and its
-    fp32 operations over the fp32 rate, summed over the items."""
+    """Least time the card could take for a plan's gate items on ``b`` rows:
+    per item, the larger of its bytes (state read and written once, plus
+    its unitary / phase planes / perm read once) over the memory rate and
+    its fp32 operations over the fp32 rate, summed over the items."""
     N = 1 << plan.n
     total = 0.0
     for it in plan.items:
+        if it.kind not in ("dense", "diag", "perm"):
+            continue
         w = len(it.qubits)
         rows = 1 if it.is_constant else b
         nbytes = 16 * N * b
@@ -90,7 +189,10 @@ class Smoke:
         self.args = args
         self.dev = torch.device("cuda")
         self.max_err = {k: 0.0 for k in KERNELS}
-        self.report: dict = {"circuits": {}, "timings": {}}
+        self.report: dict = {"circuits": {}, "timings": {}, "results": {}}
+        # launches per path, summed over its counted segments
+        self.launches = {path: {k: 0 for k in KERNELS}
+                         for path in ("statevector", "result")}
 
     # -- helpers -----------------------------------------------------------------
     def check(self, kernel: str, got, want, what: str,
@@ -239,15 +341,28 @@ class Smoke:
             f"(tol 1e-5)")
 
     # -- phase 2: the main path at full width -----------------------------------------
+    def counted(self, path: str, fn):
+        """Run ``fn`` with every launch count set to 0 just before it, and
+        add the counts read just after it to ``path``'s tally."""
+        return self.counted_with(path, fn)[0]
+
+    def counted_with(self, path: str, fn):
+        """:meth:`counted`, returning ``fn``'s result with the counts of
+        this run."""
+        import repro_torch.kernels as RK
+        RK.reset_launch_counts()
+        out = fn()
+        launched = RK.launch_counts()
+        for k, c in launched.items():
+            self.launches[path][k] += c
+        return out, launched
+
     def main_path(self) -> None:
         import numpy as np
-        from repro_torch.core import circuits as C
         from repro_torch.core.simulator import Simulator
         from repro_torch.core.target import H100
         from repro_torch.engine import (BatchExecutor, PlanCache,
                                         qaoa_template)
-        from repro_torch.kernels import launch_counts
-        from repro_torch.kernels.expectation import ops as E
         torch = self.torch
         a = self.args
         sizes = {"qft": a.qft_n, "qv": FULL_N, "ghz": FULL_N,
@@ -260,96 +375,127 @@ class Smoke:
                         device=self.dev)
         dense = Simulator(H100, backend="dense", plan_cache=cache,
                           device=self.dev)
-        qv_state = None
+        results = {"qft": self.result_qft, "ghz": self.result_ghz,
+                   "qv": self.result_qv}
         for name, nn in sizes.items():
-            circ = C.build(name, nn, **({"depth": 8} if name == "qrc" else {}))
-            t0 = time.perf_counter()
-            plan = sim.plan_for(circ)
-            compile_s = time.perf_counter() - t0
-            kinds = {"dense": 0, "diag": 0, "perm": 0}
-            for it in plan.items:
-                kinds[it.kind] += 1
-            widest = max(len(it.qubits) for it in plan.items)
-            before = launch_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = sim.run(circ)
-            torch.cuda.synchronize()
-            first_ms = (time.perf_counter() - t0) * 1e3
-            after = launch_counts()
-            del out
-            t0 = time.perf_counter()
-            out = sim.run(circ)
-            torch.cuda.synchronize()
-            warm_ms = (time.perf_counter() - t0) * 1e3
-            launches = {k: after[k] - before[k] for k in after}
-            if launches["apply_fused_gate"] != kinds["dense"] or \
-                    launches["apply_phase_gate"] != kinds["diag"] + \
-                    kinds["perm"]:
-                raise AssertionError(f"{name}{nn}: launches {launches} do "
-                                     f"not match items {kinds}")
-            norm_err = abs(float(out.norm_sq()) - 1.0)
-            t0 = time.perf_counter()
-            ref = dense.run(circ)
-            torch.cuda.synchronize()
-            dense_s = time.perf_counter() - t0
-            dist = float(torch.linalg.vector_norm(out.data - ref.data))
-            del ref
-            bound = items_bound_ms(plan, 1)
-            row = {"n": nn, "items": kinds, "widest_item": widest,
-                   "compile_s": compile_s, "run_ms_first": first_ms,
-                   "run_ms_warm": warm_ms, "items_bound_ms": bound,
-                   "launches": launches,
-                   "l2_vs_dense": dist, "norm_err": norm_err,
-                   "dense_s": dense_s}
-            if name == "ghz":
-                flat = out.data.reshape(2, -1)
-                amp = 1 / math.sqrt(2)
-                others = torch.cat([flat[0, 1:-1], flat[1]]).abs().max()
-                row["ghz_err"] = max(abs(float(flat[0, 0]) - amp),
-                                     abs(float(flat[0, -1]) - amp),
-                                     float(others))
-                if row["ghz_err"] > 1e-5:
-                    raise AssertionError(f"ghz{nn}: analytic amplitudes off "
-                                         f"by {row['ghz_err']:.3g}")
-            say(f"{name}{nn}: compile {compile_s:.2f} s, run {first_ms:.1f} ms "
-                f"first / {warm_ms:.1f} ms warm (items' bound {bound:.1f} ms,"
-                f" {100 * bound / warm_ms:.0f}%), items {kinds} (widest "
-                f"{widest}), launches K1={launches['apply_fused_gate']} "
-                f"K2={launches['apply_phase_gate']}, |psi-psi_dense|_2="
-                f"{dist:.3e}, |norm^2-1|={norm_err:.3e}, dense backend "
-                f"{dense_s:.1f} s"
-                + (f", ghz amplitude err {row['ghz_err']:.3e}"
-                   if "ghz_err" in row else ""))
-            if not (dist <= 1e-3 and norm_err <= 1e-4):
-                raise AssertionError(f"{name}{nn}: state off the dense "
-                                     f"backend ({dist:.3g}, {norm_err:.3g})")
-            self.report["circuits"][f"{name}{nn}"] = row
-            held = cache.held_bytes().get(str(out.device), 0)
-            say(f"  plan cache holds {held} bytes on the card after {name}{nn}")
-            self.report["circuits"][f"{name}{nn}"]["cache_held_bytes"] = held
+            out = self.counted("statevector", lambda: self.circuit(
+                sim, dense, cache, name, nn))
             if name == "qv":
-                qv_state = out
+                self.counted("statevector", lambda: self.qv_expectation_z(
+                    sim, out))
+            if name in results:
+                # counts the first run of each result, not its checks
+                timing = results[name](sim, out)
+                timing()                 # not counted: timing launches
             del out
             torch.cuda.empty_cache()
-
-        nq = sizes["qv"]
-        for q in (0, nq - 1):
-            got = sim.expectation_z(qv_state, q)
-            want = E.expectation_z_ref(qv_state.data, nq, 5, q)
-            err = self.check("expectation_z", got, want, f"qv{nq} q={q}",
-                             tol=TOL_Z_FULL)
-            say(f"qv{nq} <Z_{q}> = {float(got):+.6e} (plain "
-                f"{float(want):+.6e}, |diff| {err:.2e})")
-            self.report["circuits"][f"qv{nq}"][f"z{q}"] = float(got)
-        del qv_state
-        torch.cuda.empty_cache()
 
         nb, batch = BATCH_N, 8
         tmpl = qaoa_template(nb, 2)
         pm = np.random.default_rng(0).uniform(
             -np.pi, np.pi, (batch, tmpl.num_params)).astype(np.float32)
         ex = BatchExecutor(H100, backend="cuda", device=self.dev)
+        states = self.counted("statevector", lambda: self.sweep(ex, tmpl, pm))
+        timing = self.result_sweep(ex, tmpl, pm, states)
+        del states
+        torch.cuda.empty_cache()
+        timing()
+        self.result_hea(ex)
+
+    def circuit(self, sim, dense, cache, name: str, nn: int):
+        """One of the paper's circuits through ``Simulator.run``, checked
+        against the dense backend; returns the state."""
+        from repro_torch.core import circuits as C
+        from repro_torch.kernels import launch_counts
+        torch = self.torch
+        circ = C.build(name, nn, **({"depth": 8} if name == "qrc" else {}))
+        t0 = time.perf_counter()
+        plan = sim.plan_for(circ)
+        compile_s = time.perf_counter() - t0
+        kinds = {"dense": 0, "diag": 0, "perm": 0}
+        for it in plan.items:
+            kinds[it.kind] += 1
+        widest = max(len(it.qubits) for it in plan.items)
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sim.run(circ)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        after = launch_counts()
+        del out
+        t0 = time.perf_counter()
+        out = sim.run(circ)
+        torch.cuda.synchronize()
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: after[k] - before[k] for k in after}
+        if launches["apply_fused_gate"] != kinds["dense"] or \
+                launches["apply_phase_gate"] != kinds["diag"] + \
+                kinds["perm"]:
+            raise AssertionError(f"{name}{nn}: launches {launches} do "
+                                 f"not match items {kinds}")
+        norm_err = abs(float(out.norm_sq()) - 1.0)
+        t0 = time.perf_counter()
+        ref = dense.run(circ)
+        torch.cuda.synchronize()
+        dense_s = time.perf_counter() - t0
+        dist = float(torch.linalg.vector_norm(out.data - ref.data))
+        del ref
+        bound = items_bound_ms(plan, 1)
+        row = {"n": nn, "items": kinds, "widest_item": widest,
+               "compile_s": compile_s, "run_ms_first": first_ms,
+               "run_ms_warm": warm_ms, "items_bound_ms": bound,
+               "launches": launches,
+               "l2_vs_dense": dist, "norm_err": norm_err,
+               "dense_s": dense_s}
+        if name == "ghz":
+            flat = out.data.reshape(2, -1)
+            amp = 1 / math.sqrt(2)
+            others = torch.cat([flat[0, 1:-1], flat[1]]).abs().max()
+            row["ghz_err"] = max(abs(float(flat[0, 0]) - amp),
+                                 abs(float(flat[0, -1]) - amp),
+                                 float(others))
+            if row["ghz_err"] > 1e-5:
+                raise AssertionError(f"ghz{nn}: analytic amplitudes off "
+                                     f"by {row['ghz_err']:.3g}")
+        say(f"{name}{nn}: compile {compile_s:.2f} s, run {first_ms:.1f} ms "
+            f"first / {warm_ms:.1f} ms warm (items' bound {bound:.1f} ms,"
+            f" {100 * bound / warm_ms:.0f}%), items {kinds} (widest "
+            f"{widest}), launches K1={launches['apply_fused_gate']} "
+            f"K2={launches['apply_phase_gate']}, |psi-psi_dense|_2="
+            f"{dist:.3e}, |norm^2-1|={norm_err:.3e}, dense backend "
+            f"{dense_s:.1f} s"
+            + (f", ghz amplitude err {row['ghz_err']:.3e}"
+               if "ghz_err" in row else ""))
+        if not (dist <= 1e-3 and norm_err <= 1e-4):
+            raise AssertionError(f"{name}{nn}: state off the dense "
+                                 f"backend ({dist:.3g}, {norm_err:.3g})")
+        self.report["circuits"][f"{name}{nn}"] = row
+        held = cache.held_bytes().get(str(out.device), 0)
+        say(f"  plan cache holds {held} bytes on the card after {name}{nn}")
+        row["cache_held_bytes"] = held
+        return out
+
+    def qv_expectation_z(self, sim, st) -> None:
+        from repro_torch.kernels.expectation import ops as E
+        nq = st.n
+        for q in (0, nq - 1):
+            got = sim.expectation_z(st, q)
+            want = E.expectation_z_ref(st.data, nq, 5, q)
+            err = self.check("expectation_z", got, want, f"qv{nq} q={q}",
+                             tol=TOL_Z_FULL)
+            say(f"qv{nq} <Z_{q}> = {float(got):+.6e} (plain "
+                f"{float(want):+.6e}, |diff| {err:.2e})")
+            self.report["circuits"][f"qv{nq}"][f"z{q}"] = float(got)
+
+    def sweep(self, ex, tmpl, pm):
+        """The qaoa26 sweep through ``BatchExecutor.run_batch``, checked
+        against the dense backend; returns the states."""
+        from repro_torch.core.target import H100
+        from repro_torch.engine import BatchExecutor
+        from repro_torch.kernels import launch_counts
+        torch = self.torch
+        nb, batch = tmpl.n, pm.shape[0]
         t0 = time.perf_counter()
         plan = ex.plan_for(tmpl)
         compile_s = time.perf_counter() - t0
@@ -371,6 +517,7 @@ class Smoke:
         worst = max(float(torch.linalg.vector_norm(s.data - r.data))
                     for s, r in zip(states, refs))
         norm_err = max(abs(float(s.norm_sq()) - 1.0) for s in states)
+        del refs
         kinds = plan.class_counts()
         bound = items_bound_ms(plan, batch)
         say(f"BatchExecutor qaoa{nb}p2 B={batch}: compile {compile_s:.2f} s, "
@@ -388,8 +535,498 @@ class Smoke:
                                 "items_bound_ms": bound,
                                 "items": kinds,
                                 "launches": launches, "l2_vs_dense": worst}
-        del states, refs
+        return states
+
+    # -- phase 2b: result modes on the main path's states -----------------------------
+    def launched(self, before) -> dict:
+        from repro_torch.kernels import launch_counts
+        after = launch_counts()
+        return {k: after[k] - before[k] for k in after}
+
+    def result_timing(self, label: str, ms: float, bound_ms: float,
+                      route_ms: float, plain_ms: float, launches: dict,
+                      **extra) -> None:
+        row = {"ms": ms, "bound_ms": bound_ms, "route_bytes_ms": route_ms,
+               "plain_ms": plain_ms,
+               "k1_launches": launches["apply_fused_gate"],
+               "k2_launches": launches["apply_phase_gate"],
+               "k3_launches": launches["expectation_z"], **extra}
+        self.report["results"].setdefault("timings", {})[label] = row
+        say(f"timing {label}: {ms:.3f} ms warm (bound {bound_ms:.3f} ms at "
+            f"3.35 TB/s, {100 * bound_ms / ms:.0f}%; the route's bytes "
+            f"{route_ms:.3f} ms), plain {plain_ms:.3f} ms, launches "
+            f"K1={row['k1_launches']} K2={row['k2_launches']} "
+            f"K3={row['k3_launches']}"
+            + "".join(f", {k} {v:.3f}" for k, v in extra.items()))
+
+    def host_ms(self, fn, reps: int = 1) -> float:
+        """Median host time of ``fn`` ending in a device synchronize."""
+        torch = self.torch
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def result_qft(self, sim, st):
+        """Shots on qft30, whose state is uniform: every draw against the
+        plain float64 inverse CDF of the same uniforms (equal, or across a
+        boundary within 1e-12 of its uniform), and the top and bottom 10
+        index bits against uniform; returns the (uncounted) timing."""
+        from repro_torch.core import measure as ME
+        torch = self.torch
+        n = st.n
+        N = 1 << n
+        shots, key = 1 << 20, 2024
+        got = self.counted("result", lambda: sim.sample(st, shots, key))
+        if got.device.type != self.dev.type or got.dtype != torch.int32 or \
+                tuple(got.shape) != (shots,):
+            raise AssertionError(f"sample: {got.device} {got.dtype} "
+                                 f"{tuple(got.shape)}")
+        u = ME.uniforms(shots, key, self.dev)
+        cdf = plain_cdf(torch, ME.probabilities(st))
+        equal, boundary = equal_or_boundary(
+            torch, got, plain_draws(torch, cdf, u), cdf, u)
+        del cdf
+        crit = chi2_crit_999(1023)
+        stats = {}
+        for label, bins in (("top", got >> (n - 10)), ("bottom", got & 1023)):
+            obs = torch.bincount(bins.long(), minlength=1024).double()
+            e = shots / 1024
+            stats[label] = float(((obs - e) ** 2 / e).sum())
+        c32 = torch.cumsum(ME.probabilities(st), 0)
+        distinct32 = 1 + int((c32[1:] != c32[:-1]).sum())
+        del c32
+        say(f"qft{n} sample 2**20 against the plain float64 inverse CDF of "
+            f"the same uniforms: {equal} draws equal, {boundary} across a "
+            f"boundary within {BOUNDARY_TOL} of the uniform, 0 other; "
+            f"chi-square top 10 bits {stats['top']:.1f}, bottom 10 bits "
+            f"{stats['bottom']:.1f} (99.9% point {crit:.1f}, df 1023); a "
+            f"float32 CDF of these probabilities holds {distinct32} distinct "
+            f"values for {N} basis states")
+        if max(stats.values()) >= crit:
+            raise AssertionError(f"qft{n} shots: chi-square {stats}")
+        self.report["results"][f"qft{n}"] = {
+            "draws_equal": equal, "draws_boundary": boundary, "chi2": stats,
+            "chi2_crit": crit, "float32_cdf_distinct": distinct32}
+
+        def timing():
+            from repro_torch.kernels import launch_counts
+            before = launch_counts()
+            ms = self.time_ms(lambda: sim.sample(st, shots, key), reps=5,
+                              warmup=1)
+            launches = {k: 0 for k in before}   # the sampler launches none
+            if self.launched(before) != launches:
+                raise AssertionError("the sampler launched a kernel")
+            plain_ms = self.time_ms(lambda: plain_draws(
+                torch, plain_cdf(torch, ME.probabilities(st)),
+                ME.uniforms(shots, key, self.dev)), reps=5, warmup=1)
+            # the state read once, the draws written once
+            bound = (8 * N + 4 * shots) / HBM_BYTES_PER_S * 1e3
+            # the route built: |amp|^2 (8N read, 4N written), the float64
+            # copy (4N, 8N), row sums (8N), the row scan (8N, 8N)
+            route = (48 * N + 4 * shots) / HBM_BYTES_PER_S * 1e3
+            self.result_timing(f"sample qft{n} 2**20 shots", ms, bound,
+                               route, plain_ms, launches)
+        return timing
+
+    def result_ghz(self, sim, st):
+        """Shots and parities on ghz30."""
+        from repro_torch.core import measure as ME
+        torch = self.torch
+        n = st.n
+        N = 1 << n
+        shots = 1 << 16
+        got = self.counted("result", lambda: sim.sample(st, shots, 7))
+        zeros = int((got == 0).sum())
+        ones = int((got == N - 1).sum())
+        sigma = math.sqrt(shots) / 2
+        say(f"ghz{n} sample 2**16: {zeros} x |0...0>, {ones} x |1...1> "
+            f"(others {shots - zeros - ones}; split {zeros - shots / 2:+.0f} "
+            f"= {(zeros - shots / 2) / sigma:+.2f} sigma)")
+        if zeros + ones != shots or abs(zeros - shots / 2) > 5 * sigma:
+            raise AssertionError(f"ghz{n} shots off: {zeros}, {ones}")
+        xs = {q: "X" for q in range(n)}
+        vals = {}
+        for label, obs, k1, k3 in ((f"Z0 Z{n - 1}", {0: "Z", n - 1: "Z"}, 2,
+                                    0),
+                                   (f"X^{n}", xs, n, 0),
+                                   ("Z0", {0: "Z"}, 0, 1)):
+            v, d = self.counted_with("result", lambda: float(
+                sim.expectation_pauli(st, obs)))
+            want = 0.0 if label == "Z0" else 1.0
+            vals[label] = v
+            say(f"ghz{n} <{label}> = {v:+.7f} (exact {want:+.0f}), launches "
+                f"K1={d['apply_fused_gate']} K3={d['expectation_z']}")
+            if abs(v - want) > TOL_EXPECT or d["apply_fused_gate"] != k1 \
+                    or d["expectation_z"] != k3:
+                raise AssertionError(f"ghz{n} <{label}> = {v}, launches {d}")
+        self.report["results"][f"ghz{n}"] = {"zeros": zeros, "ones": ones,
+                                             **vals}
+
+        def timing():
+            ms = self.time_ms(lambda: sim.expectation_pauli(st, xs), reps=3,
+                              warmup=1)
+            plain_ms = self.time_ms(lambda: ME.expectation_pauli(
+                st, xs, plain=True), reps=1, warmup=0)
+            # n K1 passes (state read and written) and the inner product
+            # (two states read): the route built, and its bound
+            bound = (n * 16 * N + 16 * N) / HBM_BYTES_PER_S * 1e3
+            self.result_timing(f"ghz{n} <X^{n}>", ms, bound, bound,
+                               plain_ms,
+                               {"apply_fused_gate": n, "apply_phase_gate": 0,
+                                "expectation_z": 0})
+        return timing
+
+    def result_qv(self, sim, st):
+        """Pauli strings on qv30 against the plain path.  A random state's
+        values are of order 2**-15, so they are held to 1e-6 (as K3 is at
+        n = 30), and again on a normalized copy biased so that both strings
+        are far from 0: qubit 0 pulled towards |+>, qubit 29 towards |+i>
+        (<X_0 Y_29> near 4/9; a wrong sign of Y flips it), and the
+        amplitudes with bit 3 != bit 17 halved (<Z_3 Z_17> near 3/5)."""
+        import dataclasses
+        from repro_torch.core import measure as ME
+        torch = self.torch
+        n = st.n
+        strings = ({0: "X", n - 1: "Y"}, {3: "Z", 17: "Z"})
+        biased = st.data.clone()
+        flat = biased.view(2, 2, -1, 2)          # plane, bit n-1, .., bit 0
+        flat[..., 1] += flat[..., 0]
+        flat[..., 1] *= 0.5
+        lo, hi = flat[:, 0], flat[:, 1]          # bit n-1 = 0, 1
+        hi[0] -= lo[1]                           # amp1 += i * amp0
+        hi[1] += lo[0]
+        hi *= 0.5
+        del flat, lo, hi
+        odd = biased.view(2, 1 << (n - 18), 2, 1 << 13, 2, 1 << 3)
+        odd[:, :, 0, :, 1] *= 0.5
+        odd[:, :, 1, :, 0] *= 0.5
+        del odd
+        biased /= torch.sqrt(ME.inner_re(biased, biased))
+        report = self.report["results"].setdefault(f"qv{n}", {})
+        tol = TOL_Z_FULL
+        for which, state in (("", st),
+                             (" biased", dataclasses.replace(st, data=biased))):
+            for obs in strings:
+                if which:
+                    got = float(sim.expectation_pauli(state, obs))
+                else:          # the path's own run
+                    got = float(self.counted("result", lambda: (
+                        sim.expectation_pauli(state, obs))))
+                torch.cuda.empty_cache()
+                want = float(ME.expectation_pauli(state, obs, plain=True))
+                torch.cuda.empty_cache()
+                label = " ".join(f"{p}{q}" for q, p in sorted(obs.items()))
+                say(f"qv{n}{which} <{label}> = {got:+.7e} (plain "
+                    f"{want:+.7e}, |diff| {abs(got - want):.2e}, tol {tol})")
+                if abs(got - want) > tol:
+                    raise AssertionError(f"qv{n}{which} <{label}> off the "
+                                         f"plain path")
+                if which and not abs(want) > 0.1:
+                    raise AssertionError(f"biased qv{n}: <{label}> = {want}")
+                report[label + which] = got
+        del biased, state
         torch.cuda.empty_cache()
+        return lambda: None
+
+    def plain_observables(self, data, n: int, observables):
+        """f32[B, O]: each observable by the plain versions on stacked
+        states (K3's plain version for a single Z, else the fused gate's per
+        factor and the inner product)."""
+        from repro_torch.core import measure as ME
+        from repro_torch.kernels.apply_gate import ref as R
+        from repro_torch.kernels.expectation import ops as E
+        torch = self.torch
+        cols = []
+        for obs in observables:
+            items = sorted(obs.items())
+            if len(items) == 1 and items[0][1] == "Z":
+                cols.append(E.expectation_z_ref(data, n, 5, items[0][0]))
+                continue
+            pd = data
+            for q, p in items:
+                ur, ui = ME.pauli_planes(p, data.device)
+                pd = R.apply_fused_gate_ref(pd, n, 5, (q,), ur, ui)
+            cols.append(ME.inner_re(data, pd))
+            del pd
+        return torch.stack(cols, dim=1)
+
+    def branch_margins(self, plan, prefix, rowkeys):
+        """Per noisy row, the least distance of its channel uniforms from a
+        branch boundary (a running sum of the branch norms over their
+        total), and the branch it draws at each channel, replayed with the
+        plain versions from the row's prefix state ``prefix[r]`` and the
+        plan's stream seeds."""
+        import itertools
+        from repro_torch.core import measure as ME
+        from repro_torch.engine import plan as PL
+        from repro_torch.kernels.apply_gate import ref as R
+        torch = self.torch
+        chans = [it for it in plan.items if it.kind == "channel"]
+        margins, picks = [], []
+        for row, (key, traj) in zip(prefix, rowkeys):
+            psi, least = row, math.inf
+            picks.append([])
+            for i, it in enumerate(chans):
+                kr, ki = it.kraus_planes(self.dev)
+                branches = [R.apply_fused_gate_ref(psi, plan.n, 5, it.qubits,
+                                                   kr[j], ki[j])
+                            for j in range(kr.shape[0])]
+                norms = [float(ME.inner_re(x, x)) for x in branches]
+                g = ME.generator(ME.mix64(int(key), int(traj),
+                                          PL._CHANNEL_SALT + i), self.dev)
+                u = float(torch.rand(1, dtype=torch.float64, generator=g,
+                                     device=self.dev))
+                cums = list(itertools.accumulate(norms))
+                least = min([least] + [abs(u - c / cums[-1])
+                                       for c in cums[:-1]])
+                pick = next((j for j, c in enumerate(cums[:-1])
+                             if c > u * cums[-1]), len(cums) - 1)
+                psi = branches[pick] / math.sqrt(norms[pick])
+                picks[-1].append(pick)
+                del branches
+            margins.append(least)
+        return margins, picks
+
+    def uncounted(self, fn):
+        """Run ``fn`` outside every path's tally (a check, not the path's
+        own run); return its result with the launches it made."""
+        from repro_torch.kernels import launch_counts
+        before = launch_counts()
+        out = fn()
+        return out, self.launched(before)
+
+    def result_sweep(self, ex, tmpl, pm, states):
+        """qaoa26 p = 2, B = 8 in the three result modes through
+        ``dispatch_batch(result=...)`` + ``finalize_batch``.  The first run
+        of each mode is the result path's own and counts; reruns in other
+        batch compositions and the further channel runs are checks."""
+        import numpy as np
+        from repro_torch.engine import (ResultSpec, amplitude_damping,
+                                        bit_flip, depolarizing)
+        torch = self.torch
+        n, b = tmpl.n, pm.shape[0]
+        data = torch.stack([s.data for s in states])
+
+        def run(spec, params, rowkeys=None):
+            plan, raw = ex.dispatch_batch(tmpl, params, result=spec,
+                                          rowkeys=rowkeys)
+            return torch.stack(ex.finalize_batch(plan, raw))
+
+        def compiled(spec):
+            t0 = time.perf_counter()
+            plan = ex.plan_for(tmpl, result=spec)
+            return plan, time.perf_counter() - t0
+
+        def k123(d):
+            return (f"K1={d['apply_fused_gate']} K2={d['apply_phase_gate']} "
+                    f"K3={d['expectation_z']}")
+
+        report = self.report["results"].setdefault(f"qaoa{n}", {})
+        # expectation: the ring's MaxCut terms, Z_0 (K3) and X_0
+        ring = [{a: "Z", (a + 1) % n: "Z"} for a in range(n)]
+        obs = ring + [{0: "Z"}, {0: "X"}]
+        espec = ResultSpec.expectation(obs)
+        eplan, compile_s = compiled(espec)
+        got, elaunch = self.counted_with("result", lambda: run(espec, pm))
+        want = self.plain_observables(data, n, obs)
+        err = float((got - want).abs().max())
+        energy = ((1.0 - got[:, :n]) / 2).sum(1)
+        plain_energy = ((1.0 - want[:, :n].double()) / 2).sum(1)
+        energy_err = float((energy.double() - plain_energy).abs().max())
+        # ring[0] is Z_0 Z_1
+        zz_ideal, z0_ideal = want[:, 0].clone(), want[:, n].clone()
+        x0_ideal = want[:, n + 1].clone()
+        say(f"qaoa{n} expectation B={b}, {len(obs)} observables: compile "
+            f"{compile_s:.2f} s, max |payload - plain| {err:.2e} (tol "
+            f"{TOL_EXPECT}), MaxCut energy per row "
+            f"{[round(float(e), 5) for e in energy]} (max |energy - plain| "
+            f"{energy_err:.2e}), launches {k123(elaunch)}")
+        if err > TOL_EXPECT or elaunch["expectation_z"] != 1:
+            raise AssertionError(f"qaoa{n} expectations off ({err:.3g}) or "
+                                 f"K3 launches {elaunch}")
+        report["expectation"] = {"max_err": err, "compile_s": compile_s,
+                                 "launches": elaunch,
+                                 "energy": [float(e) for e in energy]}
+        del want, got, data
+        torch.cuda.empty_cache()
+
+        # shots: the same rows as B = 8, as 3 + 5 and one by one
+        sspec = ResultSpec.sample(4096, key=0)
+        keys = np.array([[7000 + r, 0] for r in range(b)], np.uint32)
+        splan, compile_s = compiled(sspec)
+        full, slaunch = self.counted_with("result",
+                                          lambda: run(sspec, pm, keys))
+        head = run(sspec, pm[:3], keys[:3])
+        tail = run(sspec, pm[3:], keys[3:])
+        split_ok = torch.equal(torch.cat([head, tail]), full)
+        ones_ok = all(torch.equal(run(sspec, pm[r:r + 1], keys[r:r + 1]),
+                                  full[r:r + 1]) for r in range(b))
+        in_range = int(full.min()) >= 0 and int(full.max()) < 1 << n
+        say(f"qaoa{n} shots B={b} x 4096: compile {compile_s:.2f} s, "
+            f"bitwise equal as 3 + 5: {split_ok}, one by one: {ones_ok}, "
+            f"in range: {in_range}, launches {k123(slaunch)}")
+        if not (split_ok and ones_ok and in_range and
+                full.dtype == torch.int32):
+            raise AssertionError(f"qaoa{n} shots differ across batch "
+                                 f"compositions")
+        report["shots"] = {"compile_s": compile_s, "launches": slaunch}
+
+        # noisy: each row held to the same row on the planar path (the
+        # plan's items run by the plain versions) with the same rowkeys.
+        # <X_0> shows which depolarizing branch a row drew (its Y and Z
+        # branches flip its sign; qaoa's <Z_0> is 0 whatever the branch)
+        def noisy(label, spec, reqs, key0, count):
+            unr = spec.unravelings
+            params = np.repeat(pm[reqs], unr, axis=0)
+            rks = np.array([[key0 + r, t] for r in reqs for t in range(unr)],
+                           np.uint32)
+            plan, compile_s = compiled(spec)
+            first = lambda: run(spec, params, rks)  # noqa: E731
+            vals, launched = (self.counted_with("result", first) if count
+                              else self.uncounted(first))
+            rerun_ok = torch.equal(run(spec, params, rks), vals)
+            plain_vals = plan.with_backend("planar").run_batch_result_raw(
+                params, rks, device=self.dev)
+            torch.cuda.empty_cache()
+            margins, picks = self.branch_margins(
+                plan, [states[r].data for r in reqs for _ in range(unr)],
+                rks)
+            kept = [r for r, m in enumerate(margins) if m > BRANCH_MARGIN]
+            chans = [it for it in plan.items if it.kind == "channel"]
+            drawn = [{k: sum(picks[r][i] == k for r in kept)
+                      for k in range(len(it.kraus))}
+                     for i, it in enumerate(chans)]
+            row_err = float((vals[kept] - plain_vals[kept]).abs().max())
+            say(f"qaoa{n} noisy {label}, {len(rks)} rows: compile "
+                f"{compile_s:.2f} s, max |row - planar row| {row_err:.2e} "
+                f"over {len(kept)} rows (tol {TOL_EXPECT}; "
+                f"{len(rks) - len(kept)} excluded with a uniform within "
+                f"{BRANCH_MARGIN} of a branch boundary, least margin "
+                f"{min(margins):.3g}; branches drawn per channel in the rows "
+                f"compared {drawn}), rerun bitwise equal: {rerun_ok}, "
+                f"<Z_0>, <Z_5>, <X_0> per row "
+                f"{[[round(v, 6) for v in r] for r in vals.tolist()]}, "
+                f"launches {k123(launched)}")
+            if not rerun_ok or row_err > TOL_EXPECT:
+                raise AssertionError(f"qaoa{n} noisy {label}: rows off the "
+                                     f"planar path ({row_err:.3g}) or rerun "
+                                     f"{rerun_ok}")
+            info = {"compile_s": compile_s, "launches": launched,
+                    "rerun_bitwise": rerun_ok, "row_err": row_err,
+                    "rows_compared": len(kept),
+                    "rows_excluded": len(rks) - len(kept),
+                    "least_margin": min(margins), "branches_drawn": drawn,
+                    "payload": vals.tolist()}
+            return plan, params, rks, launched, info
+
+        nobs = [{0: "Z"}, {5: "Z"}, {0: "X"}]
+        nspec = ResultSpec.noisy([depolarizing(0, 0.1),
+                                  amplitude_damping(5, 0.2)], nobs,
+                                 unravelings=8)
+        nplan, npm, nkeys, nlaunch, report["noisy"] = noisy(
+            "depolarizing(0, 0.1) + amplitude_damping(5, 0.2)", nspec,
+            [0, 1], 900, count=True)
+        # p = 3/4 draws each depolarizing branch with probability 1/4: the
+        # comparison covers the X, Y and Z branches at full width too
+        *_, uinfo = noisy("depolarizing(0, 0.75)", ResultSpec.noisy(
+            [depolarizing(0, 0.75)], nobs, unravelings=8), [2], 950,
+            count=False)
+        report["noisy_uniform_branches"] = uinfo
+        if not any(c for k, c in uinfo["branches_drawn"][0].items() if k):
+            raise AssertionError(f"qaoa{n} depolarizing(0, 0.75): no X, Y "
+                                 f"or Z branch among the rows compared")
+        # a certain flip of qubit 0 negates <Z_0> and <Z_0 Z_1> and keeps
+        # <X_0>
+        flip = ResultSpec.noisy([bit_flip(0, 1.0)],
+                                [{0: "Z"}, {0: "Z", 1: "Z"}, {0: "X"}],
+                                unravelings=1)
+        fplan, fcompile_s = compiled(flip)
+        fv = run(flip, pm)
+        ferr = max(float((fv[:, 0] + z0_ideal).abs().max()),
+                   float((fv[:, 1] + zz_ideal).abs().max()),
+                   float((fv[:, 2] - x0_ideal).abs().max()))
+        say(f"qaoa{n} bit_flip(0, 1) B={b} (compile {fcompile_s:.2f} s): max "
+            f"|<Z_0> + <Z_0>_ideal|, |<Z_0 Z_1> + <Z_0 Z_1>_ideal|, |<X_0> - "
+            f"<X_0>_ideal| = {ferr:.2e} (tol {TOL_EXPECT}; <Z_0 Z_1>_ideal "
+            f"per row {[round(float(v), 5) for v in zz_ideal]})")
+        if ferr > TOL_EXPECT:
+            raise AssertionError(f"qaoa{n} bit flip off ({ferr:.3g})")
+        report["noisy"]["bit_flip_err"] = ferr
+
+        def timing():
+            sv = self.report["batch"]["run_ms_warm"]
+            for label, plan, spec, params, rk, launches in (
+                    ("expectation", eplan, espec, pm, None, elaunch),
+                    ("shots", splan, sspec, pm, keys, slaunch),
+                    ("noisy", nplan, nspec, npm, nkeys, nlaunch)):
+                ms = self.host_ms(lambda: run(spec, params, rk), reps=3)
+                twin = plan.with_backend("planar")
+                rows = len(params)
+                rk_ = rk if rk is not None else np.zeros((rows, 2), np.uint32)
+                plain_ms = self.host_ms(lambda: twin.run_batch_result_raw(
+                    params, rk_, device=self.dev))
+                del twin
+                torch.cuda.empty_cache()
+                bound, route = result_bounds_ms(plan, rows)
+                self.result_timing(
+                    f"qaoa{n} {label} sweep B={rows}", ms, bound, route,
+                    plain_ms, launches, statevector_sweep_ms=sv)
+        return timing
+
+    def result_hea(self, ex):
+        """K3 on the result path held against values far from 0.  QAOA's
+        <Z_q> is 0 by its global bit-flip symmetry, so an hea26 (2 layers)
+        B = 8 sweep takes single-Z observables through K3, in expectation
+        mode and under a certain bit flip of qubit 0, each held to the
+        plain reductions of the sweep's states (a check: not counted)."""
+        import numpy as np
+        from repro_torch.engine import ResultSpec, bit_flip, hea_template
+        torch = self.torch
+        n, b = BATCH_N, 8
+        tmpl = hea_template(n, 2)
+        pm = np.random.default_rng(1).uniform(
+            -np.pi, np.pi, (b, tmpl.num_params)).astype(np.float32)
+        t0 = time.perf_counter()
+        states, _ = self.uncounted(lambda: ex.run_batch(tmpl, pm))
+        compile_s = time.perf_counter() - t0
+        data = torch.stack([s.data for s in states])
+        del states
+        obs = [{0: "Z"}, {n // 2: "Z"}, {n - 1: "Z"}, {0: "Z", 1: "Z"}]
+        want = self.plain_observables(data, n, obs)
+        del data
+        torch.cuda.empty_cache()
+        singles = float(want[:, :3].abs().max())
+        report = self.report["results"].setdefault(f"hea{n}", {})
+        for label, spec, sign in (
+                ("expectation", ResultSpec.expectation(obs), (1, 1, 1, 1)),
+                ("bit_flip(0, 1)", ResultSpec.noisy([bit_flip(0, 1.0)], obs,
+                                                    unravelings=1),
+                 (-1, 1, 1, -1))):
+            got, d = self.uncounted(lambda: torch.stack(ex.finalize_batch(
+                *ex.dispatch_batch(tmpl, pm, result=spec))))
+            err = float((got - want * torch.tensor(sign, device=self.dev))
+                        .abs().max())
+            say(f"hea{n}x2 {label} B={b}: <Z_0>, <Z_{n // 2}>, "
+                f"<Z_{n - 1}>, <Z_0 Z_1> per row "
+                f"{[[round(v, 6) for v in r] for r in got.tolist()]}, max "
+                f"|payload - plain| {err:.2e} (tol {TOL_EXPECT}; largest "
+                f"single-Z value {singles:.4f}), launches "
+                f"K1={d['apply_fused_gate']} K2={d['apply_phase_gate']} "
+                f"K3={d['expectation_z']}")
+            if err > TOL_EXPECT or d["expectation_z"] != 3:
+                raise AssertionError(f"hea{n} {label}: off the plain path "
+                                     f"({err:.3g}) or K3 launches {d}")
+            report[label] = {"max_err": err, "launches": d,
+                             "payload": got.tolist()}
+        if not singles > 0.1:
+            raise AssertionError(f"hea{n}: single-Z values near 0 "
+                                 f"({singles})")
+        report["sweep_compile_and_run_s"] = compile_s
 
     # -- phase 3: kernel timings at the main path's shapes ------------------------------
     def shape(self, kernel: str, label: str, fn, plain, nbytes: float,
@@ -723,14 +1360,16 @@ def main(argv=None) -> int:
     smoke.phase_phase()
     smoke.expectation_phase()
 
-    RK.reset_launch_counts()
     smoke.main_path()
-    launches = RK.launch_counts()
-    say(f"main-path launches: {launches}")
-    missing = [k for k, c in launches.items() if c <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
+    for path, counts in smoke.launches.items():
+        say(f"{path} path launches: {counts}")
+        missing = [k for k, c in counts.items() if c <= 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the {path} "
+                                 f"path: {missing}")
+    launches = {k: sum(c[k] for c in smoke.launches.values())
+                for k in KERNELS}
+    smoke.report["launches"] = smoke.launches
 
     rows = smoke.timings()
     kernels = []

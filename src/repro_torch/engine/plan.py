@@ -22,6 +22,17 @@ gate-by-gate oracle.
 config: a parameter sweep of B structurally identical circuits costs one
 fusion pass.  Plans are device-agnostic: device copies of an item's
 constants are made at first use on a device and kept with the item.
+
+A *result-mode* plan (``compile_plan(..., result=ResultSpec)``) appends
+``channel`` items and a terminal ``result`` item to the gate items;
+``run_result`` / ``run_batch_result_raw`` run the gate prefix through the
+same steps as ``run_batch_raw`` (one launch per item over the batch), then
+the noise channels and the epilogue — shot sampling or the Pauli-observable
+reductions — and hand back payloads instead of states.  Randomness comes
+from per-row generators seeded from the row's ``(request key,
+trajectory)``, never from batch position, and the channel and epilogue
+steps reduce each row on its own, so a row's draws do not depend on the
+batch around it.
 """
 from __future__ import annotations
 
@@ -36,17 +47,20 @@ import numpy as np
 import torch
 
 from repro_torch.core import apply as A
+from repro_torch.core import measure as ME
 from repro_torch.core import statevec as SV
 from repro_torch.core.circuits import Circuit
 from repro_torch.core.fusion import choose_f, cluster_gates, realize_cluster
 from repro_torch.core.gates import (Gate, expand_unitary, gate_class,
                                     monomial_decompose)
 from repro_torch.core.target import Target, row_budget
+from repro_torch.engine import results as RS
 from repro_torch.engine.telemetry import Histogram, vectorization_profile
 from repro_torch.engine.template import (PARAM_KINDS, CircuitTemplate,
                                          TemplateOp, template_of)
 from repro_torch.kernels.apply_gate import ops as K
 from repro_torch.kernels.apply_gate import ref as R
+from repro_torch.kernels.expectation import ops as E
 
 BACKENDS = ("dense", "planar", "cuda")
 
@@ -68,6 +82,13 @@ DIAG_PARAM_COEFF = {"rz": (-0.5, 0.5), "phase": (0.0, 1.0)}
 # one map per member gate at 2**w int64 entries would otherwise hold tens of
 # GB at n = 30.
 _CACHED_MAP_BITS = 16
+
+# Salts of the result-mode program's random streams (the JAX package's): a
+# row's channel stream i and its shot stream are seeded from
+# ``mix64(request key, trajectory, salt)``.
+_CHANNEL_SALT = 0x00C0FFEE  # + channel index
+_SHOT_SALT = 0x5A17
+_TINY32 = float(np.finfo(np.float32).tiny)
 
 
 @functools.lru_cache(maxsize=4096)
@@ -183,6 +204,14 @@ class PlanItem:
       phase vector, so ``controls`` is empty.
     * ``"perm"``  — static index-map gather ``perm`` over the cluster space,
       optionally followed by the phase rotation (monomial clusters).
+    * ``"channel"`` — one Kraus noise channel, executed by stochastic
+      trajectory unraveling: one branch per row is drawn with the
+      probability of its squared norm and renormalized (result-mode plans
+      only).
+    * ``"result"`` — the terminal epilogue item carrying the
+      :class:`~repro_torch.engine.results.ResultSpec`: shot sampling or the
+      observable reductions after the last gate, so non-statevector
+      payloads never hand the state back (paper §IV).
 
     Methods taking ``params`` expect a float32 ``[B, P]`` tensor and return
     tensors with a leading axis of extent B (or 1 for constants) on its
@@ -192,10 +221,12 @@ class PlanItem:
     qubits: tuple[int, ...]
     controls: tuple[int, ...]
     factors: tuple = ()             # ("const", ndarray) | ("param", op, maps)
-    kind: str = "dense"             # dense | diag | perm
+    kind: str = "dense"             # dense | diag | perm | channel | result
     perm: np.ndarray | None = None  # int32[2**w], kind == "perm" only
     phases: tuple = ()              # ("const", vec) | ("param", op, coeff)
     generic_flops: float | None = None  # flops/amp of the dense alternative
+    kraus: tuple = ()               # complex64 operators, kind == "channel"
+    result: object = None           # ResultSpec, kind == "result" only
     # device copies of the constants above, made at first use on a device
     _dev: dict = dataclasses.field(default_factory=dict, repr=False,
                                    compare=False)
@@ -306,6 +337,16 @@ class PlanItem:
         """int32 ``perm`` on ``device`` (kind == "perm" only)."""
         return self._on(device, "perm", lambda: torch.as_tensor(
             np.asarray(self.perm, np.int32), device=device))
+
+    def kraus_planes(self, device: torch.device,
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """f32 (re, im) planes ``[K, 2**w, 2**w]`` of the Kraus operators on
+        ``device`` (kind == "channel" only)."""
+        def make():
+            ks = np.stack(self.kraus)
+            return (torch.as_tensor(ks.real.astype(np.float32), device=device),
+                    torch.as_tensor(ks.imag.astype(np.float32), device=device))
+        return self._on(device, "kraus", make)
 
 
 def _lower_controlled_diag(g: Gate) -> PlanItem:
@@ -505,6 +546,9 @@ class CompiledPlan:
     f: int
     items: list[PlanItem]
     specialize: bool = True
+    # non-None for result-mode plans: the spec the terminal "result" item
+    # carries, duplicated here so execution paths never walk the item list
+    result: "RS.ResultSpec | None" = None
     compile_seconds: float = 0.0
     # static vectorization profile (ALO/ORR/AI/fast-path coverage), computed
     # once by compile_plan via repro_torch.engine.telemetry
@@ -514,6 +558,8 @@ class CompiledPlan:
         default=None, repr=False)
     #: guarded-by: _plock
     _steps: list | None = dataclasses.field(default=None, repr=False)
+    #: guarded-by: _plock
+    _result_steps: tuple | None = dataclasses.field(default=None, repr=False)
     _plock: threading.Lock = dataclasses.field(
         default_factory=threading.Lock, repr=False, compare=False)
 
@@ -529,9 +575,11 @@ class CompiledPlan:
     def class_counts(self) -> dict:
         """Fused-gate counts by lowering class (diag/perm items are the
         matmul-free fast paths; dense items take the generic matvec)."""
-        counts = {"diagonal": 0, "permutation": 0, "general": 0}
+        counts = {"diagonal": 0, "permutation": 0, "general": 0,
+                  "channel": 0, "result": 0}
         for item in self.items:
-            counts[{"diag": "diagonal", "perm": "permutation"}.get(
+            counts[{"diag": "diagonal", "perm": "permutation",
+                    "channel": "channel", "result": "result"}.get(
                 item.kind, "general")] += 1
         return counts
 
@@ -550,6 +598,16 @@ class CompiledPlan:
         weighted by the control-satisfied ``2**-c`` fraction)."""
         generic = actual = 0.0
         for item in self.items:
+            if item.kind == "result":
+                continue          # reduction epilogue, not a gate lowering
+            if item.kind == "channel":
+                # every Kraus branch pays a dense matvec; there is no
+                # cheaper generic alternative to compare against
+                g = item.generic_flops if item.generic_flops is not None \
+                    else 8.0 * (1 << len(item.qubits)) * len(item.kraus)
+                generic += g
+                actual += g
+                continue
             dense = (8.0 * (1 << len(item.qubits))
                      / (1 << len(item.controls)))
             g = item.generic_flops if item.generic_flops is not None else dense
@@ -562,6 +620,21 @@ class CompiledPlan:
         return {"flops_per_amp_generic": generic,
                 "flops_per_amp_actual": actual,
                 "flops_saved_frac": 1.0 - actual / generic if generic else 0.0}
+
+    def with_backend(self, backend: str) -> "CompiledPlan":
+        """The same compiled items run by ``backend``'s steps, without a
+        second compile: ``planar`` runs a ``cuda`` plan's items with the
+        plain versions (and ``cuda`` a ``planar`` plan's with the kernels).
+        The new plan builds its own steps; it shares only the items."""
+        if {backend, self.backend} - {"planar", "cuda"}:
+            raise ValueError(f"{self.template.name}: cannot run a "
+                             f"{self.backend!r} plan's items on {backend!r}; "
+                             f"only planar and cuda share an item list")
+        return CompiledPlan(template=self.template, backend=backend,
+                            target=self.target, f=self.f, items=self.items,
+                            specialize=self.specialize, result=self.result,
+                            compile_seconds=self.compile_seconds,
+                            profile=self.profile)
 
     # -- program construction -------------------------------------------------
     def _step(self, item: PlanItem):
@@ -608,12 +681,21 @@ class CompiledPlan:
             return fn(data, n, v, item.qubits, p_re, p_im, perm=perm)
         return step
 
+    def _gate_items(self) -> list[PlanItem]:
+        """The circuit part of the item list (channel/result items run only
+        in the result-mode program)."""
+        return [it for it in self.items if it.kind in ("dense", "diag",
+                                                       "perm")]
+
     def _program_steps(self) -> list:
+        """The ideal-circuit program: one step per gate item (for a
+        result-mode plan, its gate prefix)."""
         with self._plock:
             if self._steps is None:
                 if self.backend not in BACKENDS:
                     raise ValueError(f"unknown backend {self.backend!r}")
-                self._steps = [self._step(item) for item in self.items]
+                self._steps = [self._step(item)
+                               for item in self._gate_items()]
             return self._steps
 
     def _params_matrix(self, params, rows: int | None,
@@ -680,15 +762,30 @@ class CompiledPlan:
         return self._wrap(self._execute(data0[None], pm)[0])
 
     def run_batch_raw(self, params_matrix, initial: SV.State | None = None,
-                      device=None) -> torch.Tensor:
+                      device=None,
+                      initial_batch: torch.Tensor | None = None,
+                      ) -> torch.Tensor:
         """Run a ``[B, P]`` parameter matrix; returns the stacked state data
         with a leading batch axis (``[B, 2, R, V]``, or ``[B, 2**n]``
-        complex on the dense backend)."""
+        complex on the dense backend).  ``initial_batch`` gives each row
+        its own initial state data (that stacked layout)."""
+        if initial_batch is not None:
+            dev = initial_batch.device
+            pm = self._params_matrix(params_matrix, None, dev)
+            if initial_batch.shape[0] != pm.shape[0]:
+                raise ValueError(f"{self.template.name}: {pm.shape[0]} "
+                                 f"parameter rows for "
+                                 f"{initial_batch.shape[0]} initial states")
+            return self._execute(initial_batch.contiguous(), pm)
         dev = self._device(initial, device)
         pm = self._params_matrix(params_matrix, None, dev)
+        return self._execute(self._batched_initial(initial, dev,
+                                                   pm.shape[0]), pm)
+
+    def _batched_initial(self, initial: SV.State | None, dev: torch.device,
+                         b: int) -> torch.Tensor:
         d = self._initial_data(initial, dev)
-        data0 = d.unsqueeze(0).expand((pm.shape[0],) + tuple(d.shape))
-        return self._execute(data0.contiguous(), pm)
+        return d.unsqueeze(0).expand((b,) + tuple(d.shape)).contiguous()
 
     def run_batch(self, params_matrix, initial: SV.State | None = None,
                   device=None) -> list[SV.State]:
@@ -702,6 +799,179 @@ class CompiledPlan:
         ``run_batch_raw`` output into per-circuit states."""
         count = raw.shape[0] if count is None else count
         return [self._wrap(raw[b]) for b in range(count)]
+
+    # -- result-mode execution ------------------------------------------------
+    def _row_probs(self, row: torch.Tensor) -> torch.Tensor:
+        """|amp|^2 in dense basis order, from one row of this backend's
+        layout."""
+        if self.backend == "dense":
+            return row.real * row.real + row.imag * row.imag
+        flat = row.reshape(2, -1)
+        return flat[0] * flat[0] + flat[1] * flat[1]
+
+    def _row_inner(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """f32[B] Re <a_b|b_b>, one row at a time."""
+        if self.backend == "dense":
+            return torch.stack([torch.vdot(a[i], b[i]).real
+                                for i in range(a.shape[0])]).float()
+        return ME.inner_re(a, b)
+
+    def _matrix_apply(self, qubits: tuple[int, ...]):
+        """``(data, re, im) -> data`` applying a ``2**w x 2**w`` matrix —
+        unitary or not — given as f32 planes ``[1|B, 2**w, 2**w]`` on
+        ``qubits``: the fused-gate kernel on ``cuda`` (its plain version for
+        a CPU state), the plain version on ``planar``."""
+        n, v = self.n, self.target.lane_qubits
+        if self.backend == "dense":
+            return lambda psi, re, im: A.apply_gate_dense(
+                psi, n, qubits, torch.complex(re, im))
+        fn = R.apply_fused_gate_ref if self.backend == "planar" \
+            else K.apply_fused_gate
+        return lambda data, re, im: fn(data, n, v, qubits, re, im)
+
+    def _channel_step(self, item: PlanItem):
+        """Trajectory-unraveling step ``(state, generators) -> state``.
+
+        Branch by branch, applies each Kraus operator and takes each row's
+        squared norm, keeping one branch state at a time; then draws one
+        branch per row with the probability of its norm (a float64 uniform
+        from the row's generator against the running sum of the norms) and
+        applies every row's ``K_i / sqrt(norm_i)`` in one more launch with a
+        per-row matrix.  That is the JAX package's stack-all-branches
+        scheme (unbiased for any observable: E[<P>] = tr(P sum_i K_i rho
+        K_i^dagger)) in two states of memory instead of K + 1.
+        """
+        apply = self._matrix_apply(item.qubits)
+
+        def step(data, gens):
+            kr, ki = item.kraus_planes(data.device)
+            norms = []
+            for i in range(kr.shape[0]):
+                branch = apply(data, kr[i:i + 1], ki[i:i + 1])
+                norms.append(self._row_inner(branch, branch).double())
+                del branch
+            # running sums, one elementwise add per branch: a row's bits do
+            # not depend on the batch around it
+            cums = [norms[0]]
+            for nm in norms[1:]:
+                cums.append(cums[-1] + nm)
+            u = torch.cat([torch.rand(1, dtype=torch.float64, generator=g,
+                                      device=data.device) for g in gens])
+            thresh = u * torch.clamp(cums[-1], min=_TINY32)
+            # the first branch whose running sum exceeds the threshold: a
+            # zero-norm branch is never drawn while another has mass
+            idx = torch.zeros_like(u, dtype=torch.long)
+            for c in cums[:-1]:
+                idx += (c <= thresh).long()
+            chosen = torch.stack(norms, dim=1).gather(1, idx[:, None])
+            scale = torch.rsqrt(torch.clamp(chosen, min=_TINY32)).float()
+            scale = scale[:, :, None]
+            return apply(data, kr[idx] * scale, ki[idx] * scale)
+        return step
+
+    def _observable_step(self, obs: tuple):
+        """Reduction ``(state) -> f32[B]`` for one canonical Pauli string.
+
+        ``cuda`` routes the single-qubit-Z case through the ``<Z_q>``
+        kernel (the paper's §IV reduction) and applies every other string
+        factor by factor with the fused-gate kernel before the inner
+        product; ``planar`` and ``dense`` keep their plain versions."""
+        n, v = self.n, self.target.lane_qubits
+        if self.backend == "cuda" and len(obs) == 1 and obs[0][1] == "Z":
+            qubit = obs[0][0]
+            return lambda data: E.expectation_z(data, n, v, qubit)
+        factors = [(self._matrix_apply((q,)), p) for q, p in obs]
+
+        def step(data):
+            pd = data
+            for apply, p in factors:
+                ur, ui = ME.pauli_planes(p, data.device)
+                pd = apply(pd, ur, ui)
+            return self._row_inner(data, pd)
+        return step
+
+    def _epilogue_step(self, spec: RS.ResultSpec):
+        """Result epilogue ``(state, rowkeys) -> payload [B, ...]``."""
+        if spec.mode == RS.MODE_SHOTS:
+            shots = spec.shots
+
+            def epi(data, rowkeys):
+                return torch.stack([
+                    ME.sample_probs(self._row_probs(data[b]), shots,
+                                    ME.mix64(key, traj, _SHOT_SALT))
+                    for b, (key, traj) in enumerate(rowkeys)])
+            return epi
+        # expectation / noisy: one reduction per observable
+        steps = [self._observable_step(obs) for obs in spec.observables]
+
+        def epi(data, rowkeys):
+            return torch.stack([s(data) for s in steps], dim=1).float()
+        return epi
+
+    def _result_program(self) -> tuple:
+        """(channel steps, epilogue) of a result-mode plan; its gate prefix
+        is :meth:`_program_steps`, the steps ``run_batch_raw`` runs."""
+        with self._plock:
+            if self._result_steps is None:
+                if self.result is None:
+                    raise ValueError(f"{self.template.name}: plan has no "
+                                     f"result spec; use run/run_batch_raw")
+                if self.backend not in BACKENDS:
+                    raise ValueError(f"unknown backend {self.backend!r}")
+                self._result_steps = (
+                    [self._channel_step(it) for it in self.items
+                     if it.kind == "channel"],
+                    self._epilogue_step(self.result))
+            return self._result_steps
+
+    def _execute_result(self, data: torch.Tensor, pm: torch.Tensor,
+                        rowkeys: list[tuple[int, int]]) -> torch.Tensor:
+        """The gate prefix over the batch, exactly as ``run_batch_raw`` runs
+        it (one launch per item), then each channel and the epilogue.  A
+        row's randomness derives only from its ``(request key,
+        trajectory)``: channel stream i and the shot stream are generators
+        seeded with ``mix64(key, trajectory, salt)``."""
+        chans, epi = self._result_program()
+        data = self._execute(data, pm)
+        for i, ch in enumerate(chans):
+            data = ch(data, [ME.generator(
+                ME.mix64(key, traj, _CHANNEL_SALT + i), data.device)
+                for key, traj in rowkeys])
+        return epi(data, rowkeys)
+
+    @staticmethod
+    def _rowkeys(rowkeys, b: int, name: str) -> list[tuple[int, int]]:
+        rk = np.asarray(rowkeys, np.int64)
+        if rk.shape != (b, 2):
+            raise ValueError(f"{name}: rowkeys must be [{b}, 2], got "
+                             f"{tuple(rk.shape)}")
+        if rk.size and (rk.min() < 0 or rk.max() >= 1 << 32):
+            raise ValueError(f"{name}: rowkeys must be uint32")
+        return [(int(k), int(t)) for k, t in rk]
+
+    def run_result(self, params=None, rowkey=(0, 0),
+                   initial: SV.State | None = None,
+                   device=None) -> torch.Tensor:
+        """Execute one row of a result-mode plan (shots: int32[k];
+        expectation/noisy: f32[num_observables] for one trajectory)."""
+        dev = self._device(initial, device)
+        pm = self._params_matrix(params, 1, dev)
+        rk = self._rowkeys(np.reshape(rowkey, (1, 2)), 1, self.template.name)
+        return self._execute_result(self._batched_initial(initial, dev, 1),
+                                    pm, rk)[0]
+
+    def run_batch_result_raw(self, params_matrix, rowkeys,
+                             initial: SV.State | None = None,
+                             device=None) -> torch.Tensor:
+        """Run the result program over ``[B, P]`` params and ``[B, 2]``
+        rowkeys (request key, trajectory index; uint32); returns the stacked
+        payloads with a leading batch axis."""
+        dev = self._device(initial, device)
+        pm = self._params_matrix(params_matrix, None, dev)
+        rk = self._rowkeys(rowkeys, pm.shape[0], self.template.name)
+        return self._execute_result(
+            self._batched_initial(initial, dev, pm.shape[0]), pm, rk)
+
 
 
 def resolve_f(f: int | None, target: Target, n: int, fuse: bool,
@@ -725,7 +995,7 @@ def resolve_diag_f(f_eff: int, target: Target, n: int) -> int:
 
 def compile_plan(template: CircuitTemplate, *, backend: str, target: Target,
                  f: int | None = None, fuse: bool = True,
-                 specialize: bool = True,
+                 specialize: bool = True, result=None,
                  clock: Callable[[], float] = time.perf_counter,
                  ) -> CompiledPlan:
     """Cluster once, lower once: build the fused program for one structure.
@@ -735,6 +1005,14 @@ def compile_plan(template: CircuitTemplate, *, backend: str, target: Target,
     / index-map fast paths, and diagonal runs may fuse up to
     :func:`resolve_diag_f` qubits wide.  The dense no-fusion baseline
     (``f_eff == 0``) is never specialized — it stays the naive oracle.
+
+    ``result`` (a :class:`~repro_torch.engine.results.ResultSpec`) compiles
+    a *result-mode* plan: noise channels lower to ``"channel"`` items after
+    the gate items, and a terminal ``"result"`` item carries the epilogue
+    (shot sampling / observable reduction), run through
+    :meth:`CompiledPlan.run_result` / ``run_batch_result_raw``.  The
+    statevector spec is normalized away here, so a default-mode request
+    compiles the same plan as a spec-less one.
     ``clock`` injects the timebase for ``compile_seconds``.
     """
     if backend not in BACKENDS:
@@ -758,8 +1036,21 @@ def compile_plan(template: CircuitTemplate, *, backend: str, target: Target,
             items = _coalesce_diag_runs(items)
     else:
         items = [_lower_single(op, g) for op, g in zip(ops, dummy.gates)]
+    if result is not None and result.mode == RS.MODE_STATEVECTOR:
+        result = None
+    if result is not None:
+        result.validate_for(template)
+        # channels apply after the ideal circuit (post-circuit noise); the
+        # epilogue item is terminal
+        for ch in result.channels:
+            items.append(PlanItem(
+                qubits=ch.qubits, controls=(), kind="channel", kraus=ch.kraus,
+                generic_flops=8.0 * (1 << len(ch.qubits)) * len(ch.kraus)))
+        items.append(PlanItem(qubits=(), controls=(), kind="result",
+                              result=result))
     plan = CompiledPlan(template=template, backend=backend, target=target,
-                        f=f_eff, items=items, specialize=specialize)
+                        f=f_eff, items=items, specialize=specialize,
+                        result=result)
     plan.profile = vectorization_profile(plan, dummy.gates, target)
     plan.compile_seconds = clock() - t0
     return plan
@@ -833,21 +1124,24 @@ class PlanCache:
     @staticmethod
     def plan_key(template: CircuitTemplate, *, backend: str, target: Target,
                  f: int | None, fuse: bool,
-                 specialize: bool = True) -> tuple:
+                 specialize: bool = True, result=None) -> tuple:
         """Cache key: structure hash + everything that changes the
-        lowering."""
+        lowering.  A result spec adds its structural component only
+        (mode, shots, observables, channel constants): the per-request key
+        and the unraveling row count never fragment the cache."""
         f_eff = resolve_f(f, target, template.n, fuse, backend)
         return (template.structure_key(), backend, target.name, f_eff,
-                bool(specialize and f_eff))
+                bool(specialize and f_eff),
+                result.plan_key() if result is not None else None)
 
     def get_or_compile(self, template: CircuitTemplate | Circuit, *,
                        backend: str, target: Target, f: int | None = None,
-                       fuse: bool = True,
-                       specialize: bool = True) -> CompiledPlan:
+                       fuse: bool = True, specialize: bool = True,
+                       result=None) -> CompiledPlan:
         if isinstance(template, Circuit):
             template = template_of(template)
         key = self.plan_key(template, backend=backend, target=target, f=f,
-                            fuse=fuse, specialize=specialize)
+                            fuse=fuse, specialize=specialize, result=result)
         with self._lock:
             plan = self._plans.get(key)
             if plan is not None:
@@ -856,7 +1150,8 @@ class PlanCache:
                 return plan
             self.stats.bump("misses")
             plan = compile_plan(template, backend=backend, target=target,
-                                f=f, fuse=fuse, specialize=specialize)
+                                f=f, fuse=fuse, specialize=specialize,
+                                result=result)
             plan.cache_stats = self.stats
             self.stats.bump("compiles")
             self.stats.record_compile(plan.compile_seconds)
@@ -868,7 +1163,8 @@ class PlanCache:
 
     def class_counts(self) -> dict:
         """Aggregate fused-gate counts by lowering class over cached plans."""
-        counts = {"diagonal": 0, "permutation": 0, "general": 0}
+        counts = {"diagonal": 0, "permutation": 0, "general": 0,
+                  "channel": 0, "result": 0}
         with self._lock:
             plans = list(self._plans.values())
         for plan in plans:

@@ -9,7 +9,10 @@ or the JAX package.
 """
 import ast
 import dataclasses
+import os
 import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -246,7 +249,8 @@ def test_plan_cache_and_key():
         (1, 1, 2)
     key = cache.plan_key(t, backend="cuda", target=TT.CPU_TEST, f=None,
                          fuse=True)
-    assert key == (t.structure_key(), "cuda", "cpu_test", 2, True)
+    # the last component is the result spec's structural key (statevector)
+    assert key == (t.structure_key(), "cuda", "cpu_test", 2, True, None)
     cache.get_or_compile(t, backend="planar", target=TT.CPU_TEST)
     assert len(cache) == 2 and cache.stats.compile_summary()["count"] == 2
     with pytest.raises(ValueError, match="unknown backend"):
@@ -364,12 +368,20 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 def _port_sources():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = _port_sources()
     assert len(files) > 15
+    # the result-mode modules are covered too (``engine/results.py`` is
+    # numpy-only in the JAX package, but the port keeps its own copy)
+    checked = {p.relative_to(ROOT).as_posix() for p in files}
+    assert {"src/repro_torch/core/measure.py",
+            "src/repro_torch/engine/results.py",
+            "src/repro_torch/engine/plan.py",
+            "src/repro_torch/engine/batch.py",
+            "src/repro_torch/core/simulator.py"} <= checked
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -383,3 +395,16 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 top = name.split(".")[0]
                 assert top not in ("jax", "jaxlib", "repro"), \
                     f"{path.relative_to(ROOT)} imports {name}"
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.engine", "repro_torch.core", "repro_torch.core.measure",
+    "repro_torch.engine.results", "repro_torch.engine.batch",
+    "repro_torch.kernels"])
+def test_port_module_imports_first_in_a_fresh_interpreter(module):
+    """Any of the port's packages can be the first one a caller imports
+    (``repro_torch.engine`` first used to close an import cycle through
+    ``core/simulator.py``)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", f"import {module}"], env=env,
+                   check=True, timeout=300)
